@@ -15,18 +15,32 @@ failure:
    checkpoint (PLY + stage-1 w2c poses) that the render tool loads.
 4. parity: for view 0 at full size, each kernel against its plain PyTorch
    version on the card (``extract_chunks`` bitwise, ``blend_forward``
-   within 2e-4), with CUDA-event times of kernel, plain version and the
-   library call that computes the same function (where one exists), and
-   each kernel's bound from the bytes and operations of this run.
+   within 2e-4 with and without its ``n_last`` output, ``blend_backward``
+   within 2e-5 x max|g| per column group on cotangents from a seed), with
+   CUDA-event times of kernel, plain version and the library call that
+   computes the same function (where one exists), and each kernel's bound
+   from the bytes and operations of this run.
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
-   ``tests/test_torch_*.py``) within 2e-4.
+   ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
+   training loss, within 2e-5 x max|g| per parameter.
 6. main: ``das3r_tpu_torch.eval.render_tool.render_sets`` renders all 8
    views on ``cuda``; checks 8 finite, non-constant PNGs, no dropped
-   entry, and that every kernel launched once per view.
+   entry, and that the forward kernels launched once per view.
 7. profile: one more render of view 1 under ``torch.profiler``: the
    device time by kernel, the host time by operator, and the device's
    idle share of the render's wall time.
+8. train: ``das3r_tpu_torch.train.step.train_step``, 10 steps over frames
+   0 and 1 of the synthetic scene at full width (the 1.5M Gaussians with
+   every SH band filled, ``conf_static`` from the scene's dynamic maps,
+   the stage-1 poses and FoVs), densification statistics tracked; checks
+   finite losses, gradients (through the Adam moments), parameters and
+   statistics, the Adam count, no dropped entry, that frame 0's loss fell,
+   and that every kernel launched once per step.
+9. train_profile: one more step under ``torch.profiler``: device ms by
+   ``das3r::`` stage, forward and backward (a backward op belongs to the
+   stage whose forward op has its autograd sequence number), the top
+   kernels and the idle share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line. Everything it writes lives under ``build/`` and is removed at exit.
@@ -61,6 +75,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BLEND_FLOP_PER_EVAL = 15     # power, alpha, the tests and the T update
+# blend_backward per evaluation: power and alpha (~12), T restore, w,
+# gC . c, dalpha and S (~13), the nine gradient terms (~30); on the
+# special-function units the exp and the reciprocals of three divisions
+BLEND_BWD_FLOP_PER_EVAL = 55
+BLEND_BWD_SFU_PER_EVAL = 4
+GRAD_TOL = 2e-5              # x max|g|: the JAX gradient bar
+TRAIN_STEPS = 10
+# table columns by what they hold
+GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
+          "opacity": [8]}
 
 
 def emit(phase: str, **fields) -> None:
@@ -89,6 +113,27 @@ def bound(nbytes: float, ops_seconds: float = 0.0) -> tuple[float, str]:
     if ops_seconds > t_bytes:
         return ops_seconds * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def prefix_bytes(es, need, row_bytes):
+    """Bytes of the ranks and distinct table rows in each tile's first
+    ``need[t]`` slots: what a walk over those prefixes must read."""
+    import torch
+    dev = need.device
+    tiles = torch.repeat_interleave(torch.arange(need.numel(), device=dev),
+                                    need)
+    first = torch.cumsum(need, 0) - need
+    slots = (es.astart.long()[tiles] + torch.arange(tiles.numel(), device=dev)
+             - first[tiles])
+    rows = int(torch.unique(es.rank[slots]).numel())
+    return slots.numel(), slots.numel() * 4 + rows * row_bytes
+
+
+def kernel_counters():
+    from das3r_tpu_torch.ops.splat import binning, entry_blend
+    return {"extract_chunks": binning.extract_chunks,
+            "blend_forward": entry_blend.blend_forward,
+            "blend_backward": entry_blend.blend_backward}
 
 
 def phase_device():
@@ -188,6 +233,7 @@ def view0_stream(model: Path, data, settings, dev):
 
 def phase_parity(model: Path, data, settings, dev):
     """Each kernel against its plain version at the main path's shapes."""
+    import numpy as np
     import torch
     from das3r_tpu_torch.ops.splat import binning, entry_blend
 
@@ -244,15 +290,9 @@ def phase_parity(model: Path, data, settings, dev):
     # The serial loops need a prefix of each tile's list: as long as its
     # longest-running pixel's. Those slots' ranks and table rows are the
     # bytes this run's data needs.
-    need = plain.n_eval.amax(1)
-    tiles = torch.repeat_interleave(torch.arange(need.numel(), device=dev),
-                                    need)
-    first = torch.cumsum(need, 0) - need
-    slots = (es.astart.long()[tiles] + torch.arange(tiles.numel(), device=dev)
-             - first[tiles])
-    rows = int(torch.unique(es.rank[slots]).numel())
-    nbytes = (slots.numel() * 4 + rows * entry_blend.N_ATTR * 4
-              + es.astart.numel() * 4 + es.count.numel() * 4
+    n_slots, pre_bytes = prefix_bytes(es, plain.n_eval.amax(1),
+                                      entry_blend.N_ATTR * 4)
+    nbytes = (pre_bytes + es.astart.numel() * 4 + es.count.numel() * 4
               + cpre.numel() * 4 + tfinal.numel() * 4)
     ops_s = max(n_eval * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S,
                 n_eval / SFU_OPS_PER_S)
@@ -262,32 +302,99 @@ def phase_parity(model: Path, data, settings, dev):
         source="das3r_tpu_torch/csrc/blend_forward.cu",
         replaces="das3r_tpu/ops/splat/entry_blend.py:145",
         max_abs_err=max_err, mean_abs_err=mean_err,
-        ms=time_ms(lambda: entry_blend.blend_forward(
-            table, es.rank, es.astart, es.count, settings)),
         plain_ms=time_ms(lambda: entry_blend.blend_forward_plain(
             table, es.rank, es.astart, es.count, settings)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        entries=live, entries_needed=slots.numel(),
+        entries=live, entries_needed=n_slots,
         pixel_entry_evals=n_eval,
         evals_if_no_saturation=live * settings.tile * settings.tile,
         chunks_skipped=plain.chunks_skipped, bytes=nbytes))
+
+    # the training forward: the same kernel, also writing n_last
+    def fwd(for_backward):
+        return entry_blend.blend_forward(table, es.rank, es.astart,
+                                         es.count, settings, for_backward)
+
+    cpre_n, tfinal_n, n_last = fwd(True)
+    torch.cuda.synchronize()
+    err_n = max(float((cpre_n - plain.cpre).abs().max()),
+                float((tfinal_n - plain.tfinal).abs().max()))
+    if not err_n <= BLEND_TOL:
+        raise AssertionError(f"blend_forward with n_last: max err {err_n}")
+    # timed in turns, n_last off, on, on, off: one call's noise is larger
+    # than the difference
+    turns = [time_ms(lambda b=b: fwd(b)) for b in (False, True, True, False)]
+    results[-1].update(
+        ms=(turns[0] + turns[3]) / 2, ms_with_n_last=(turns[1] + turns[2]) / 2,
+        ms_turns_off_on_on_off=turns, max_abs_err_with_n_last=err_n,
+        n_last_agrees=float((n_last == plain.n_last).float().mean()))
+
+    # --- kernel C: blend_backward -------------------------------------
+    gen = np.random.default_rng(SEED + 4)
+    g_cpre = torch.as_tensor(gen.normal(size=tuple(cpre.shape)).astype(
+        np.float32), device=dev)
+    g_tfinal = torch.as_tensor(gen.normal(size=tuple(tfinal.shape)).astype(
+        np.float32), device=dev)
+    bwd_args = (table, es.rank, es.astart, es.count, settings)
+    got = entry_blend.blend_backward(*bwd_args, tfinal_n, n_last, g_cpre,
+                                     g_tfinal)
+    want = entry_blend.blend_backward_plain(
+        *bwd_args, plain.tfinal, plain.tin, g_cpre, g_tfinal).g_table
+    torch.cuda.synchronize()
+    rel = {k: float((got[:, c] - want[:, c]).abs().max()
+                    / want[:, c].abs().max()) for k, c in GROUPS.items()}
+    if not (torch.isfinite(got).all() and max(rel.values()) <= GRAD_TOL):
+        raise AssertionError(f"blend_backward err / max|g| {rel} > "
+                             f"{GRAD_TOL}")
+    evals = int(n_last.sum())
+    # The walk visits each tile's list up to its largest n_last; every
+    # pixel tests the entries before its own n_last.
+    n_slots, pre_bytes = prefix_bytes(es, n_last.amax(1).long(),
+                                      entry_blend.N_ATTR * 4)
+    nbytes = (pre_bytes + (n_last.numel() + es.astart.numel()
+                           + es.count.numel()) * 4
+              + (tfinal.numel() + g_cpre.numel() + g_tfinal.numel()) * 4
+              + got.numel() * 4)
+    ops_s = max(evals * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+                evals * BLEND_BWD_SFU_PER_EVAL / SFU_OPS_PER_S)
+    b_ms, b_by = bound(nbytes, ops_s)
+    results.append(dict(
+        name="blend_backward", route="cuda",
+        source="das3r_tpu_torch/csrc/blend_backward.cu",
+        replaces="das3r_tpu/ops/splat/entry_blend.py:237",
+        max_abs_err=float((got - want).abs().max()),
+        err_over_max_g=rel,
+        ms=time_ms(lambda: entry_blend.blend_backward(
+            *bwd_args, tfinal_n, n_last, g_cpre, g_tfinal)),
+        plain_ms=time_ms(lambda: entry_blend.blend_backward_plain(
+            *bwd_args, plain.tfinal, plain.tin, g_cpre, g_tfinal)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        pixel_entry_evals=evals, entries_needed=n_slots,
+        max_n_last=int(n_last.max()), bytes=nbytes))
     emit("parity", seconds=time.perf_counter() - t0, n_gaussians=n,
          entries=live, stream_slots=es.rank.numel(),
          max_tile_entries=int(es.count.max()),
          kernels={r["name"]: {k: r[k] for k in
                               ("max_abs_err", "ms", "plain_ms",
                                "library_ms", "bound_ms")}
-                  for r in results})
+                  for r in results},
+        blend_backward_err_over_max_g=rel,
+        blend_forward_ms_with_n_last=results[1]["ms_with_n_last"])
     return results
 
 
 def phase_reference(dev):
-    """Small scene: the card's render equals the port's CPU render."""
+    """Small scene: the card's render and training gradients equal the
+    port's on the CPU."""
+    import dataclasses
+
     import numpy as np
     import torch
     from das3r_tpu_torch.data import synthetic
     from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.models.gaussians import GaussianParams
     from das3r_tpu_torch.ops.splat import RasterSettings
+    from das3r_tpu_torch.train.loss import photometric_loss
 
     t0 = time.perf_counter()
     params, meta, poses = synthetic.random_gaussian_scene(
@@ -305,8 +412,30 @@ def phase_reference(dev):
     err = float((imgs["cpu"] - imgs[dev]).abs().max())
     if not (torch.isfinite(imgs[dev]).all() and err <= 2e-4):
         raise AssertionError(f"card render differs from CPU render: {err}")
+
+    # the gradients of the training loss, every parameter field and the
+    # pose, on the card against the CPU
+    gt = torch.as_tensor(np.random.default_rng(SEED + 5).uniform(
+        0, 1, (3, 64, 96)).astype(np.float32))
+    grads = {}
+    for d in ("cpu", dev):
+        p = GaussianParams(**{f.name: getattr(params, f.name).detach()
+                              .to(d).requires_grad_(True)
+                              for f in dataclasses.fields(params)})
+        pose = poses.pose(0).detach().to(d).requires_grad_(True)
+        out = render_mod.render(p, meta, s, pose, bg, 1.0, 1.0,
+                                mode="train", device=d)
+        loss = photometric_loss(out.image, gt.to(d), p.conf_static[0]).loss
+        leaves = [getattr(p, f.name) for f in dataclasses.fields(p)]
+        grads[d] = [g.cpu() for g in torch.autograd.grad(loss, leaves
+                                                         + [pose])]
+    names = [f.name for f in dataclasses.fields(params)] + ["pose"]
+    rel = {k: float((a - b).abs().max() / b.abs().max())
+           for k, a, b in zip(names, grads[dev], grads["cpu"])}
+    if not max(rel.values()) <= GRAD_TOL:
+        raise AssertionError(f"card gradients differ from CPU: {rel}")
     emit("reference", seconds=time.perf_counter() - t0, max_abs_err=err,
-         shape=list(imgs[dev].shape))
+         shape=list(imgs[dev].shape), grad_err_over_max_g=rel)
 
 
 def phase_main(scene: Path, model: Path, device=None):
@@ -314,10 +443,8 @@ def phase_main(scene: Path, model: Path, device=None):
     import numpy as np
     from PIL import Image
     from das3r_tpu_torch.eval import render_tool
-    from das3r_tpu_torch.ops.splat import binning, entry_blend
 
-    counted = {"extract_chunks": binning.extract_chunks,
-               "blend_forward": entry_blend.blend_forward}
+    counted = kernel_counters()
     t0 = time.perf_counter()
     stats: list[dict] = []
     for fn in counted.values():
@@ -404,6 +531,186 @@ def phase_profile(model: Path, data, settings, dev):
                      for e in kern[:8]])
 
 
+def train_scene(data, dev):
+    """The 1.5M-Gaussian scene of the serving phases, every SH band filled,
+    with ``conf_static`` from the scene's dynamic maps and the stage-1
+    poses and FoVs, as training parameters on ``dev``."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.data import synthetic
+    from das3r_tpu_torch.models.gaussians import init_pose_params
+
+    params, meta, _ = synthetic.random_gaussian_scene(
+        N_GAUSSIANS, n_frames=N_FRAMES, height=HEIGHT, width=WIDTH,
+        seed=SEED, sh_degree=SH_DEGREE, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    params.features_rest = torch.as_tensor(rng.normal(
+        0.0, 0.05, tuple(params.features_rest.shape)).astype(np.float32),
+        device=dev)
+    params.conf_static = torch.as_tensor(
+        1.0 - data.dyna_avg.astype(np.float32), device=dev)
+    w2c = np.linalg.inv(data.poses_c2w.astype(np.float64)).astype(np.float32)
+    poses = init_pose_params(w2c, float(data.fovx[0]), float(data.fovy[0]),
+                             device=dev)
+    return params, meta, poses
+
+
+def phase_train(data, settings, dev):
+    """``train_step`` at full width over frames 0 and 1; returns the
+    state, meta, each kernel's launches and what one more step needs."""
+    import dataclasses
+    import math
+
+    import torch
+    from das3r_tpu_torch.train import step as step_mod
+    from das3r_tpu_torch.train.config import OptimizationConfig
+
+    t0 = time.perf_counter()
+    params, meta, poses = train_scene(data, dev)
+    state = step_mod.init_train_state(params, poses)
+    cfg = OptimizationConfig()
+    gts = torch.as_tensor(data.images, device=dev)
+    bg = torch.zeros(3, device=dev)
+
+    def step(state, meta, uid):
+        return step_mod.train_step(
+            state, meta, uid, gts[uid], float(data.fovx[uid]),
+            float(data.fovy[uid]), bg, settings, cfg, track_stats=True)
+
+    setup_s = time.perf_counter() - t0
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    marks, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, meta, m = step(state, meta, i % 2)
+        end.record()
+        marks.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    ms = [a.elapsed_time(b) for a, b in marks]
+    losses = [float(m.loss) for m in metrics]
+
+    finite = all(math.isfinite(x) for x in losses)
+    for opt in (state.opt, state.opt_cam):
+        for group in (opt.mu, opt.nu):
+            finite &= all(bool(torch.isfinite(getattr(group, f.name)).all())
+                          for f in dataclasses.fields(group))
+    for group in (state.params, state.poses):
+        finite &= all(bool(torch.isfinite(getattr(group, f.name)).all())
+                      for f in dataclasses.fields(group))
+    finite &= bool(torch.isfinite(meta.xyz_grad_accum).all())
+    if not finite:
+        raise AssertionError(f"non-finite loss, gradient or parameter: "
+                             f"losses {losses}")
+    if int(state.opt.count) != TRAIN_STEPS or state.step != TRAIN_STEPS:
+        raise AssertionError(f"Adam count {int(state.opt.count)}, step "
+                             f"{state.step}, expected {TRAIN_STEPS}")
+    dropped = sum(int(m.entry_overflow) for m in metrics)
+    if dropped:
+        raise AssertionError(f"{dropped} entries dropped")
+    if not losses[TRAIN_STEPS - 2] < losses[0]:
+        raise AssertionError(f"frame 0's loss did not fall: {losses}")
+    for name, count in launches.items():
+        if count != TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {count} times in "
+                                 f"{TRAIN_STEPS} train steps")
+    emit("train", seconds=time.perf_counter() - t0, setup_seconds=setup_s,
+         steps=TRAIN_STEPS, step_ms_median_steps_2_10=statistics.median(
+             ms[1:]), step_ms=ms, losses=losses,
+         psnr=[float(m.psnr) for m in metrics],
+         cam_steps=int(state.opt_cam.count),
+         visible=[int(m.radii_nonzero) for m in metrics],
+         stats_denom_max=float(meta.denom.max()),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches)
+    return launches, lambda: step(state, meta, 0)
+
+
+def stage_times(prof) -> dict:
+    """Device ms of each top-level ``das3r::`` stage of a profiled train
+    step, forward and backward, from the kernels each operator launched
+    (a range's own device-side span is not counted). A forward operator
+    belongs to its enclosing top-level stage range; a backward operator
+    (run by the autograd engine, on its own thread for the GPU) belongs to
+    the stage of the forward operator with the same autograd sequence
+    number. Operators outside every range (the camera transform,
+    activations, the conf gather, gradient accumulation) fall under
+    ``render_other``."""
+    top = ("das3r::preprocess", "das3r::bin_entry_stream", "das3r::blend",
+           "das3r::assemble", "das3r::loss", "das3r::adam")
+    events = prof.events()
+    backward = "autograd::engine::evaluate_function"
+
+    def owner(e):
+        """(top-level range, evaluate_function) enclosing ``e``."""
+        rng = ev = None
+        while e is not None:
+            if rng is None and e.name in top:
+                rng = e.name[len("das3r::"):]
+            if e.name.startswith(backward):
+                ev = e
+            e = e.cpu_parent
+        return rng or "render_other", ev
+
+    seq = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            rng, ev = owner(e)
+            if ev is None:
+                seq.setdefault(e.sequence_nr, rng)
+    out: dict[str, dict[str, float]] = {}
+    for e in events:
+        if not e.kernels or e.name.startswith("das3r::"):
+            continue
+        rng, ev = owner(e)
+        key = "forward_ms"
+        if ev is not None:
+            key, rng = "backward_ms", seq.get(ev.sequence_nr, "render_other")
+        d = out.setdefault(rng, {})
+        d[key] = d.get(key, 0.0) + sum(k.duration for k in e.kernels) / 1e3
+    return out
+
+
+def phase_train_profile(one_step):
+    """One more train step under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("das3r::")),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    stages = stage_times(prof)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU
+                   and not e.key.startswith("das3r::")),
+                  key=lambda e: -e.self_cpu_time_total)
+    emit("train_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms,
+         kernel_launches=sum(e.count for e in kern),
+         stages=stages, stages_total_ms=sum(
+             sum(d.values()) for d in stages.values()),
+         host_top=[dict(name=e.key[:60], calls=e.count,
+                        ms=e.self_cpu_time_total / 1e3)
+                   for e in host[:8]],
+         device_top=[dict(name=e.key[:100], calls=e.count,
+                          ms=e.self_device_time_total / 1e3)
+                     for e in kern[:12]])
+
+
 def main() -> int:
     t_all = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -424,19 +731,27 @@ def main() -> int:
         results = phase_parity(model, data, settings, "cuda")
         torch.cuda.empty_cache()
         phase_reference("cuda")
-        launches = phase_main(scene, model)
+        serve = phase_main(scene, model)
         phase_profile(model, data, settings, "cuda")
+        torch.cuda.empty_cache()
+        train, one_step = phase_train(data, settings, "cuda")
+        phase_train_profile(one_step)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    for kname, count in launches.items():
-        if count != N_FRAMES:
+    # serving runs the forward kernels once per view and no backward
+    want = {"extract_chunks": N_FRAMES, "blend_forward": N_FRAMES,
+            "blend_backward": 0}
+    for kname, count in serve.items():
+        if count != want[kname]:
             raise AssertionError(
                 f"{kname} launched {count} times over {N_FRAMES} views")
 
     name, power = (x.strip() for x in smi.split(",", 1))
     for r in results:
-        r["launches"] = launches[r["name"]]
-        r["launches_per_view"] = launches[r["name"]] / N_FRAMES
+        k = r["name"]
+        r["launches"] = serve[k] + train[k]
+        r["launches_by_path"] = {"serve_8_views": serve[k],
+                                 f"train_{TRAIN_STEPS}_steps": train[k]}
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": results}), flush=True)

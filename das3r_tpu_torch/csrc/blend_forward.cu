@@ -19,6 +19,12 @@
 // exact saturation skip that the TPU kernel's sticky running product gives.
 // An empty tile writes (cpre = 0, tfinal = 1) itself.
 //
+// For the backward (csrc/blend_backward.cu) the kernel can also write
+// n_last[t, p]: the count of list positions up to and including the
+// pixel's last contributing entry. The backward walks each pixel's list
+// from there and restores T by division, so nothing per entry is saved.
+// The serving path passes a null pointer and writes nothing more.
+//
 // Bound on the H100: operations, not bytes. Each pixel-entry evaluation is
 // ~15 FP32 operations and one exp; the exp goes to the special-function
 // units (16 per SM per clock, ~4.2e12/s on an H100 SXM at 1.98 GHz), about
@@ -42,7 +48,8 @@ blend_forward_kernel(const float* __restrict__ table,
                      const int32_t* __restrict__ astart,
                      const int32_t* __restrict__ count, int tiles_x,
                      float alpha_clip, float alpha_floor, float eps,
-                     float* __restrict__ cpre, float* __restrict__ tfinal) {
+                     float* __restrict__ cpre, float* __restrict__ tfinal,
+                     int32_t* __restrict__ n_last) {
   __shared__ float s_attr[kAttr][kPix];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -52,6 +59,7 @@ blend_forward_kernel(const float* __restrict__ table,
   const int cnt = count[t];
 
   float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  int last = 0;
   bool done = false;
   for (int b = 0; b < cnt; b += kPix) {
     // Also the barrier that keeps the previous batch's readers ahead of
@@ -83,6 +91,7 @@ blend_forward_kernel(const float* __restrict__ table,
       c1 += w * s_attr[6][j];
       c2 += w * s_attr[7][j];
       T = test_T;
+      last = b + j + 1;
     }
   }
   float* out = cpre + (int64_t)t * 3 * kPix;
@@ -90,6 +99,7 @@ blend_forward_kernel(const float* __restrict__ table,
   out[kPix + p] = c1;
   out[2 * kPix + p] = c2;
   tfinal[(int64_t)t * kPix + p] = T;
+  if (n_last != nullptr) n_last[(int64_t)t * kPix + p] = last;
 }
 
 }  // namespace
@@ -98,10 +108,11 @@ extern "C" int blend_forward_launch(const void* table, const void* rank,
                                     const void* astart, const void* count,
                                     int n_tiles, int tiles_x, float alpha_clip,
                                     float alpha_floor, float eps, void* cpre,
-                                    void* tfinal, void* stream) {
+                                    void* tfinal, void* n_last,
+                                    void* stream) {
   blend_forward_kernel<<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
       (const int32_t*)count, tiles_x, alpha_clip, alpha_floor, eps,
-      (float*)cpre, (float*)tfinal);
+      (float*)cpre, (float*)tfinal, (int32_t*)n_last);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@
 All use the identity-view trick: the rasterizer sees viewmatrix = I and
 Gaussians moved into the camera frame inside the autograd graph
 (xyz' = w2c(q, t) @ xyz, rot' = q * rot), so the photometric loss can reach
-the learnable camera pose.
+the learnable camera pose. Gradients reach every ``GaussianParams`` field
+(``conf_static`` through the per-Gaussian gather in mode 'train'), the
+pose and the FoV.
 """
 from __future__ import annotations
 
@@ -113,9 +115,11 @@ def render(
 
     view, proj, campos, tfx, tfy = _raster_common(fovx, fovy, dev)
 
+    # The capture is a zeros leaf: its gradient is the screen-space signal
+    # of the densification statistics.
     offset = mean2d_offset
     if offset is None and capture_mean2d_grad:
-        offset = torch.zeros_like(params.xyz[:, :2])
+        offset = torch.zeros_like(params.xyz[:, :2]).requires_grad_(True)
     img, radii, aux = rasterize(
         xyz_cam, opacity, settings,
         viewmatrix=view, projmatrix=proj, campos=campos,

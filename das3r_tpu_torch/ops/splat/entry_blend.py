@@ -1,25 +1,35 @@
-"""Entry-stream blend: variable-length per-tile lists, forward only.
+"""Entry-stream blend: variable-length per-tile lists, forward and backward.
 
-Port of the forward of ``das3r_tpu/ops/splat/entry_blend.py``. Each tile's
-depth-ordered entries live at slots [astart[t], astart[t] + count[t]) of
-the stream built by ``binning.bin_entry_stream``; the attribute table is
-indexed by depth rank, with a zero sentinel row for pad slots. Outputs are
-background-free: ``cpre`` (premultiplied color) and ``tfinal`` (final
-transmittance); the caller composes ``cpre + tfinal * bg``.
+Port of ``das3r_tpu/ops/splat/entry_blend.py``. Each tile's depth-ordered
+entries live at slots [astart[t], astart[t] + count[t]) of the stream built
+by ``binning.bin_entry_stream``; the attribute table is indexed by depth
+rank, with a zero sentinel row for pad slots. Outputs are background-free:
+``cpre`` (premultiplied color) and ``tfinal`` (final transmittance); the
+caller composes ``cpre + tfinal * bg``, so the bg gradient rides ordinary
+autograd.
+
+The backward is the CUDA rasterizer's suffix form: walking each tile's
+list back to front with S = gT * T_final + sum over later entries of
+(gC . c) w, it gives every table row the gradient of its mean2d, conic,
+color and opacity. Two versions, as for the forward:
+
+* the plain PyTorch version (``blend_backward_plain``) is the JAX kernel's
+  algorithm batched over tiles: reverse chunk walk, replay of each chunk
+  from the per-chunk transmittance ``tin`` of the plain forward;
+* the CUDA kernel (csrc/blend_backward.cu) walks each pixel's list from its
+  last contributing entry (``n_last``, saved by the forward kernel) and
+  restores T before each entry from T_final by division.
 
 Attribute columns of the table:
     0: mean2d_x  1: mean2d_y  2: conic_xx  3: conic_xy  4: conic_yy
     5: color_r   6: color_g   7: color_b   8: opacity
-
-The gradients of the render (``entry_blend._backward_kernel`` on the TPU)
-are the next slice of the port (ROADMAP.md queue 1, "gradients of the
-render"); until then the backward raises.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from das3r_tpu_torch.ops.splat import kernels
 from das3r_tpu_torch.ops.splat.binning import CHUNK, EntryStream
@@ -34,6 +44,50 @@ class PlainBlend(NamedTuple):
     n_eval: torch.Tensor      # [T, P] entries each pixel's serial loop
                               # tests: a prefix of the tile's list
     chunks_skipped: int       # live tile chunks skipped as saturated
+    tin: torch.Tensor         # [E_al/128, P] running T entering each chunk
+    n_last: torch.Tensor      # [T, P] int32 list positions up to and
+                              # including the last contributing entry
+
+
+class PlainBlendGrad(NamedTuple):
+    g_table: torch.Tensor     # [M, 9] gradient of each table row
+    chunks_skipped: int       # live tile chunks skipped as saturated
+
+
+def _tile_pixels(settings: RasterSettings, n_tiles: int, dev):
+    """(px, py) [T, P] float pixel coordinates of every tile's pixels."""
+    s = settings
+    P = s.tile * s.tile
+    pix = torch.arange(P, device=dev)
+    tiles = torch.arange(n_tiles, device=dev)
+    px = ((tiles % s.tiles_x) * s.tile)[:, None] + pix % s.tile
+    py = ((tiles // s.tiles_x) * s.tile)[:, None] + pix // s.tile
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def _chunk_math(attr, px, py, t_in, settings: RasterSettings):
+    """Per-(pixel, entry) quantities of one chunk for a batch of tiles:
+    attr [Ta, CHUNK, 9], px/py/t_in [Ta, P] -> tensors [Ta, P, CHUNK]
+    (``_chunk_math`` of the JAX kernel, with a cumulative product in place
+    of its exp-of-log-sum)."""
+    s = settings
+    a_mx, a_my, a_cxx, a_cxy, a_cyy = (attr[:, None, :, i] for i in range(5))
+    a_op = attr[:, None, :, 8]
+    dx = a_mx - px[:, :, None]
+    dy = a_my - py[:, :, None]
+    power = -0.5 * (a_cxx * dx * dx + a_cyy * dy * dy) - a_cxy * dx * dy
+    alpha_raw = a_op * torch.exp(power)
+    alpha = torch.clamp_max(alpha_raw, s.alpha_clip)
+    valid = (power <= 0.0) & (alpha >= s.alpha_floor)
+    a = torch.where(valid, alpha, torch.zeros_like(alpha))
+    one_m = 1.0 - a
+    prod = torch.cumprod(torch.cat([t_in[:, :, None], one_m], 2), 2)
+    cum_before, t_after = prod[:, :, :-1], prod[:, :, 1:]
+    contribute = valid & (t_after >= s.transmittance_eps)
+    w = torch.where(contribute, a * cum_before, torch.zeros_like(a))
+    return dict(dx=dx, dy=dy, alpha_raw=alpha_raw, one_m=one_m,
+                cum_before=cum_before, t_after=t_after,
+                contribute=contribute, w=w)
 
 
 def blend_forward_plain(table: torch.Tensor, rank: torch.Tensor,
@@ -47,63 +101,147 @@ def blend_forward_plain(table: torch.Tensor, rank: torch.Tensor,
     the running product committed even past eps (the sticky ``done`` bit in
     product form), and ``tacc``, the T after the last contributing entry. A
     tile's chunk is skipped, exactly, once every pixel has trun < eps.
+    ``tin`` records trun entering every chunk of a tile, skipped or not,
+    as the TPU kernel saves it for its backward.
     """
     s = settings
     dev = table.device
     P = s.tile * s.tile
     n_tiles = count.shape[0]
-    pix = torch.arange(P, device=dev)
-    tiles = torch.arange(n_tiles, device=dev)
-    px = ((tiles % s.tiles_x) * s.tile)[:, None] + pix % s.tile
-    py = ((tiles // s.tiles_x) * s.tile)[:, None] + pix // s.tile
-    px, py = px.to(torch.float32), py.to(torch.float32)
+    px, py = _tile_pixels(s, n_tiles, dev)
 
     cacc = torch.zeros(n_tiles, P, 3, device=dev)
     tacc = torch.ones(n_tiles, P, device=dev)
     trun = torch.ones(n_tiles, P, device=dev)
     n_eval = torch.zeros(n_tiles, P, dtype=torch.int64, device=dev)
+    n_last = torch.zeros(n_tiles, P, dtype=torch.int32, device=dev)
+    tin = torch.ones(rank.shape[0] // CHUNK, P, device=dev)
     n_chunks = (count.to(torch.int64) + CHUNK - 1) // CHUNK
     chunk0 = astart.to(torch.int64) // CHUNK
     lane = torch.arange(CHUNK, device=dev)
     skipped = 0
     for k in range(int(n_chunks.max()) if n_tiles else 0):
         has = n_chunks > k
+        hi = has.nonzero().squeeze(1)
+        tin[chunk0[hi] + k] = trun[hi]
         go = has & (trun.amax(1) >= s.transmittance_eps)
         skipped += int((has & ~go).sum())
         ti = go.nonzero().squeeze(1)
         if ti.numel() == 0:
             continue
         attr = table[rank[(chunk0[ti] + k)[:, None] * CHUNK + lane]]
-        a_mx, a_my, a_cxx, a_cxy, a_cyy = (attr[:, None, :, i]
-                                           for i in range(5))
-        a_op = attr[:, None, :, 8]
-        dx = a_mx - px[ti][:, :, None]                     # [Ta, P, CHUNK]
-        dy = a_my - py[ti][:, :, None]
-        power = -0.5 * (a_cxx * dx * dx + a_cyy * dy * dy) - a_cxy * dx * dy
-        alpha = torch.clamp_max(a_op * torch.exp(power), s.alpha_clip)
-        valid = (power <= 0.0) & (alpha >= s.alpha_floor)
-        a = torch.where(valid, alpha, torch.zeros_like(alpha))
-        t_in = trun[ti]
-        prod = torch.cumprod(torch.cat([t_in[:, :, None], 1.0 - a], 2), 2)
-        cum_before, t_after = prod[:, :, :-1], prod[:, :, 1:]
-        contribute = valid & (t_after >= s.transmittance_eps)
-        w = torch.where(contribute, a * cum_before, torch.zeros_like(a))
-        cacc[ti] += torch.bmm(w, attr[:, :, 5:8])
+        m = _chunk_math(attr, px[ti], py[ti], trun[ti], s)
+        contribute = m["contribute"]
+        cacc[ti] += torch.bmm(m["w"], attr[:, :, 5:8])
         tacc[ti] = torch.amin(torch.where(
-            contribute, t_after, tacc[ti][:, :, None]), 2)
-        trun[ti] = t_after[:, :, -1]
+            contribute, m["t_after"], tacc[ti][:, :, None]), 2)
+        trun[ti] = m["t_after"][:, :, -1]
         live = (k * CHUNK + lane) < count[ti][:, None]       # not a pad
-        n_eval[ti] += ((cum_before >= s.transmittance_eps)
+        n_eval[ti] += ((m["cum_before"] >= s.transmittance_eps)
                        & live[:, None, :]).sum(2)
+        # position after the chunk's last contributing entry
+        last = CHUNK - torch.argmax(contribute.flip(2).to(torch.int8), 2)
+        n_last[ti] = torch.where(contribute.any(2),
+                                 (k * CHUNK + last).to(torch.int32),
+                                 n_last[ti])
     return PlainBlend(cpre=cacc.transpose(1, 2).contiguous(),
                       tfinal=tacc[:, None, :], n_eval=n_eval,
-                      chunks_skipped=skipped)
+                      chunks_skipped=skipped, tin=tin, n_last=n_last)
+
+
+def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
+                         astart: torch.Tensor, count: torch.Tensor,
+                         settings: RasterSettings, tfinal: torch.Tensor,
+                         tin: torch.Tensor, g_cpre: torch.Tensor,
+                         g_tfinal: torch.Tensor) -> PlainBlendGrad:
+    """The JAX ``_backward_kernel``'s algorithm batched over tiles, with
+    its reduction of per-entry gradients to table rows (``_bwd``).
+
+    Walks each tile's chunks in reverse, replays each chunk's forward from
+    ``tin`` (``blend_forward_plain``), and carries the suffix
+    S = gT * T_final + sum over later entries of (gC . c) w per pixel.
+    Per entry and pixel: dalpha = (gC . c) T_before - S_i / (1 - alpha)
+    where the entry contributes, zeroed where alpha_raw > alpha_clip; the
+    mean2d, conic and opacity gradients follow through the power. A chunk
+    whose entering T is below eps at every pixel holds no contributing
+    entry and is skipped, exactly, as in the forward."""
+    s = settings
+    dev = table.device
+    n_tiles = count.shape[0]
+    px, py = _tile_pixels(s, n_tiles, dev)
+    g_col = g_cpre.transpose(1, 2)                         # [T, P, 3]
+    svec = (g_tfinal[:, 0, :] * tfinal[:, 0, :]).clone()   # [T, P]
+    g_table = torch.zeros_like(table)
+    n_chunks = (count.to(torch.int64) + CHUNK - 1) // CHUNK
+    chunk0 = astart.to(torch.int64) // CHUNK
+    lane = torch.arange(CHUNK, device=dev)
+    skipped = 0
+    for k in reversed(range(int(n_chunks.max()) if n_tiles else 0)):
+        has = n_chunks > k
+        cidx = torch.where(has, chunk0 + k, torch.zeros_like(chunk0))
+        go = has & (tin[cidx].amax(1) >= s.transmittance_eps)
+        skipped += int((has & ~go).sum())
+        ti = go.nonzero().squeeze(1)
+        if ti.numel() == 0:
+            continue
+        r = rank[(chunk0[ti] + k)[:, None] * CHUNK + lane]  # [Ta, CHUNK]
+        attr = table[r]
+        m = _chunk_math(attr, px[ti], py[ti], tin[cidx[ti]], s)
+        dx, dy, w, alpha_raw = m["dx"], m["dy"], m["w"], m["alpha_raw"]
+        gc = g_col[ti]                                     # [Ta, P, 3]
+        gc_dot = torch.bmm(gc, attr[:, :, 5:8].transpose(1, 2))
+        e = gc_dot * w
+        # S_i = S + sum_{j > i} e_j: an exclusive suffix sum over the chunk
+        incl = torch.cumsum(e.flip(2), 2).flip(2)
+        s_i = (torch.cat([incl[:, :, 1:], torch.zeros_like(incl[:, :, :1])],
+                         2) + svec[ti][:, :, None])
+        d_alpha = torch.where(
+            m["contribute"],
+            gc_dot * m["cum_before"] - s_i / torch.clamp_min(m["one_m"],
+                                                            1e-12),
+            torch.zeros_like(w))
+        d_alpha_raw = torch.where(alpha_raw > s.alpha_clip,
+                                  torch.zeros_like(d_alpha), d_alpha)
+        d_power = alpha_raw * d_alpha_raw
+        a_cxx, a_cxy, a_cyy = (attr[:, None, :, i] for i in (2, 3, 4))
+        a_op = attr[:, None, :, 8]
+        g_rows = torch.stack([
+            (-(a_cxx * dx + a_cxy * dy) * d_power).sum(1),
+            (-(a_cyy * dy + a_cxy * dx) * d_power).sum(1),
+            (-0.5 * dx * dx * d_power).sum(1),
+            (-dx * dy * d_power).sum(1),
+            (-0.5 * dy * dy * d_power).sum(1),
+            *torch.bmm(w.transpose(1, 2), gc).unbind(2),
+            ((alpha_raw / torch.clamp_min(a_op, 1e-30))
+             * d_alpha_raw).sum(1),
+        ], 2)                                              # [Ta, CHUNK, 9]
+        g_table.index_add_(0, r.reshape(-1), g_rows.reshape(-1, N_ATTR))
+        svec[ti] += e.sum(2)
+    return PlainBlendGrad(g_table=g_table, chunks_skipped=skipped)
+
+
+def _check_stream(table, rank, astart, count, settings: RasterSettings):
+    """Raise unless the CUDA kernels can take this table and stream."""
+    s = settings
+    if s.tile != 16:
+        raise ValueError(f"the blend kernels need 16x16 tiles, got {s.tile}")
+    kernels.check(table, "table", torch.float32, 2)
+    kernels.check(rank, "rank", torch.int32, 1, table.device)
+    kernels.check(astart, "astart", torch.int32, 1, table.device)
+    kernels.check(count, "count", torch.int32, 1, table.device)
+    if table.shape[1] != N_ATTR:
+        raise ValueError(f"table must be [M, {N_ATTR}], got "
+                         f"{tuple(table.shape)}")
+    if astart.shape[0] != count.shape[0] or count.shape[0] != s.n_tiles:
+        raise ValueError(f"astart/count must hold {s.n_tiles} tiles")
 
 
 def blend_forward(table: torch.Tensor, rank: torch.Tensor,
                   astart: torch.Tensor, count: torch.Tensor,
-                  settings: RasterSettings):
-    """(cpre [T, 3, P], tfinal [T, 1, P]) of each tile's front-to-back blend.
+                  settings: RasterSettings, for_backward: bool = False):
+    """(cpre [T, 3, P], tfinal [T, 1, P]) of each tile's front-to-back blend;
+    with ``for_backward`` also ``n_last`` [T, P] int32, one past each
+    pixel's last contributing entry, which ``blend_backward`` starts from.
 
     Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
     _forward_kernel`` together with the ``table[rank]`` gather before it.
@@ -115,51 +253,110 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     """
     if table.device.type == "cpu":
         out = blend_forward_plain(table, rank, astart, count, settings)
+        if for_backward:
+            return out.cpre, out.tfinal, out.n_last
         return out.cpre, out.tfinal
+    _check_stream(table, rank, astart, count, settings)
     s = settings
-    if s.tile != 16:
-        raise ValueError(f"the blend kernel needs 16x16 tiles, got {s.tile}")
-    kernels.check(table, "table", torch.float32, 2)
-    kernels.check(rank, "rank", torch.int32, 1, table.device)
-    kernels.check(astart, "astart", torch.int32, 1, table.device)
-    kernels.check(count, "count", torch.int32, 1, table.device)
-    if table.shape[1] != N_ATTR:
-        raise ValueError(f"table must be [M, {N_ATTR}], got "
-                         f"{tuple(table.shape)}")
     n_tiles = count.shape[0]
-    if astart.shape[0] != n_tiles or n_tiles != s.n_tiles:
-        raise ValueError(f"astart/count must hold {s.n_tiles} tiles")
     P = s.tile * s.tile
     cpre = torch.empty(n_tiles, 3, P, device=table.device)
     tfinal = torch.empty(n_tiles, 1, P, device=table.device)
+    n_last = (torch.empty(n_tiles, P, dtype=torch.int32, device=table.device)
+              if for_backward else None)
     kernels.launch("blend_forward", table.data_ptr(), rank.data_ptr(),
                    astart.data_ptr(), count.data_ptr(), n_tiles, s.tiles_x,
                    s.alpha_clip, s.alpha_floor, s.transmittance_eps,
-                   cpre.data_ptr(), tfinal.data_ptr())
+                   cpre.data_ptr(), tfinal.data_ptr(),
+                   None if n_last is None else n_last.data_ptr())
     blend_forward.launches += 1
+    if for_backward:
+        return cpre, tfinal, n_last
     return cpre, tfinal
 
 
 blend_forward.launches = 0
 
 
+def blend_backward(table: torch.Tensor, rank: torch.Tensor,
+                   astart: torch.Tensor, count: torch.Tensor,
+                   settings: RasterSettings, tfinal: torch.Tensor,
+                   n_last: torch.Tensor, g_cpre: torch.Tensor,
+                   g_tfinal: torch.Tensor) -> torch.Tensor:
+    """g_table [M, 9]: the gradient of every table row, given the
+    cotangents of ``cpre`` and ``tfinal`` and the forward's ``tfinal`` and
+    ``n_last`` (``blend_forward(..., for_backward=True)``).
+
+    Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
+    _backward_kernel`` and the XLA reduction of its per-entry gradients to
+    table rows (``_bwd``). On the H100 it is bound by operations (~50 FP32
+    operations, one exp and two divisions per pixel-entry evaluation, plus
+    a block reduction per entry), so the kernel (csrc/blend_backward.cu)
+    keeps each batch of entries in shared memory, visits only the list
+    prefix that the forward's pixels reached, sums each entry over the
+    tile's pixels in registers and shared memory, and adds the sums into
+    the table rows with one atomic per entry and column. A CPU tensor
+    takes the plain version, which replays each chunk from the per-chunk
+    transmittance of the plain forward, run again here (it does not need
+    ``n_last``); a CUDA tensor launches the kernel.
+    """
+    if table.device.type == "cpu":
+        fwd = blend_forward_plain(table, rank, astart, count, settings)
+        return blend_backward_plain(table, rank, astart, count, settings,
+                                    fwd.tfinal, fwd.tin, g_cpre,
+                                    g_tfinal).g_table
+    _check_stream(table, rank, astart, count, settings)
+    s = settings
+    n_tiles = count.shape[0]
+    P = s.tile * s.tile
+    for t, name, dtype, shape in (
+            (tfinal, "tfinal", torch.float32, (n_tiles, 1, P)),
+            (n_last, "n_last", torch.int32, (n_tiles, P)),
+            (g_cpre, "g_cpre", torch.float32, (n_tiles, 3, P)),
+            (g_tfinal, "g_tfinal", torch.float32, (n_tiles, 1, P))):
+        kernels.check(t, name, dtype, len(shape), table.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    g_table = torch.zeros_like(table)
+    kernels.launch("blend_backward", table.data_ptr(), rank.data_ptr(),
+                   astart.data_ptr(), count.data_ptr(), n_tiles, s.tiles_x,
+                   s.alpha_clip, s.alpha_floor, tfinal.data_ptr(),
+                   n_last.data_ptr(), g_cpre.data_ptr(), g_tfinal.data_ptr(),
+                   g_table.data_ptr())
+    blend_backward.launches += 1
+    return g_table
+
+
+blend_backward.launches = 0
+
+
 class _BlendEntryStream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, rank, astart, count, settings):
-        return blend_forward(table, rank, astart, count, settings)
+        if not ctx.needs_input_grad[0]:
+            return blend_forward(table, rank, astart, count, settings)
+        cpre, tfinal, n_last = blend_forward(table, rank, astart, count,
+                                             settings, for_backward=True)
+        ctx.save_for_backward(table, rank, astart, count, tfinal, n_last)
+        ctx.settings = settings
+        return cpre, tfinal
 
     @staticmethod
     def backward(ctx, g_cpre, g_tfinal):
-        raise NotImplementedError(
-            "the entry-stream blend has no backward in the PyTorch port yet: "
-            "see ROADMAP.md queue 1, 'gradients of the render'")
+        table, rank, astart, count, tfinal, n_last = ctx.saved_tensors
+        with record_function("das3r::blend_backward"):
+            g_table = blend_backward(table, rank, astart, count,
+                                     ctx.settings, tfinal, n_last,
+                                     g_cpre.contiguous(),
+                                     g_tfinal.contiguous())
+        return g_table, None, None, None, None
 
 
 def blend_entry_stream(table, rank, astart, count,
                        settings: RasterSettings):
     """table [N+1, 9] (row N = zero sentinel), rank [E_al] int32, astart
     and count [T] int32 -> (cpre [T, 3, P], tfinal [T, 1, P]); an empty
-    tile is (0, 1). Differentiable in ``table`` once the backward lands."""
+    tile is (0, 1). Differentiable in ``table``."""
     return _BlendEntryStream.apply(table, rank, astart, count, settings)
 
 

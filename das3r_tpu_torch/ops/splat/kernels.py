@@ -29,15 +29,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signature of each kernel's launch function (stream last).
 SIGNATURES = {
     # keys, src0, nlive, n_chunks, nbits, n, rank_out, stream
     "extract_chunks": (_P, _P, _P, _L, _I, _I, _P, _P),
     # table, rank, astart, count, n_tiles, tiles_x, alpha_clip,
-    # alpha_floor, eps, cpre_out, tfinal_out, stream
-    "blend_forward": (_P, _P, _P, _P, _I, _I, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_float, _P, _P, _P),
+    # alpha_floor, eps, cpre_out, tfinal_out, n_last_out (may be NULL),
+    # stream
+    "blend_forward": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
+    # table, rank, astart, count, n_tiles, tiles_x, alpha_clip,
+    # alpha_floor, tfinal, n_last, g_cpre, g_tfinal, g_table_out, stream
+    "blend_backward": (_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+                       _P),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

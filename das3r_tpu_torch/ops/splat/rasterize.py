@@ -11,8 +11,9 @@
 
 The [T, K] window branch and the tile-sharded branch of the JAX package
 are not ported yet (ROADMAP.md). Binning runs on detached tensors;
-gradients would flow through the gathered attribute table, whose blend
-backward is the next slice of the port.
+gradients flow through the depth-ordered attribute table: the blend
+backward gives each table row its gradient, ``permute_rows`` takes it
+back to Gaussian order, and autograd carries it through preprocess.
 """
 from __future__ import annotations
 
@@ -31,10 +32,28 @@ from das3r_tpu_torch.utils.device import on_device, resolve_device
 DUP_HIST_WIDTHS = (2, 4, 6, 8, 10, 12, 16, 20, 24, 28)
 
 
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.save_for_backward(order)
+        return x[order]
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], dtype=order.dtype,
+                                  device=order.device)
+        return g[inv], None
+
+
 def permute_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """``x[order]`` for a permutation ``order``. The inverse-permutation
-    backward of the JAX version comes with the gradients of the render."""
-    return x[order]
+    """``x[order]`` for a PERMUTATION ``order``, whose backward is a row
+    gather by the inverse permutation (as in the JAX package) instead of
+    the scatter-add autograd would emit for an arbitrary index. The
+    inverse is built in the backward, so a forward-only render pays
+    nothing for it."""
+    return _PermuteRows.apply(x, order.detach())
 
 
 class RasterAux(NamedTuple):

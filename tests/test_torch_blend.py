@@ -31,13 +31,18 @@ def jax_stream_and_table(js, ts, scene):
     return es, table
 
 
-def run_both(js, ts, es, table):
-    cpre_j, tfinal_j = jblend.render_tiles(table, es, jnp.zeros(3), js)
+def torch_stream(es, table):
+    """(table, rank, astart, count) of a JAX stream as the port's tensors."""
     count = torch.as_tensor(np.array(es.count))
     al = (count.long() + 127) // 128 * 128
-    plain = tblend.blend_forward_plain(
-        torch.as_tensor(np.array(table)), torch.as_tensor(np.array(es.rank)),
-        (torch.cumsum(al, 0) - al).to(torch.int32), count, ts)
+    return (torch.as_tensor(np.array(table)),
+            torch.as_tensor(np.array(es.rank)),
+            (torch.cumsum(al, 0) - al).to(torch.int32), count)
+
+
+def run_both(js, ts, es, table):
+    cpre_j, tfinal_j = jblend.render_tiles(table, es, jnp.zeros(3), js)
+    plain = tblend.blend_forward_plain(*torch_stream(es, table), ts)
     return np.asarray(cpre_j), np.asarray(tfinal_j), plain
 
 
@@ -88,7 +93,9 @@ def test_saturation_skip_fires_and_stays_exact():
                                rtol=0)
 
 
-def test_blend_backward_is_not_ported_yet():
+def test_blend_backward_runs_on_an_empty_tile():
+    """The same 5-row table and empty one-tile stream: the backward runs
+    and gives the table a finite (here zero) gradient."""
     t = torch.zeros(5, 9, requires_grad=True)
     from das3r_tpu_torch.ops.splat import RasterSettings
     s = RasterSettings(image_height=16, image_width=16)
@@ -97,5 +104,6 @@ def test_blend_backward_is_not_ported_yet():
         torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
         s)
     assert (cpre == 0).all() and (tfinal == 1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cpre.sum().backward()
+    (cpre.sum() + tfinal.sum()).backward()
+    assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert (t.grad == 0).all()

@@ -17,6 +17,12 @@ from das3r_tpu_torch.ops.splat import binning, entry_blend
 
 pytestmark = pytest.mark.cuda
 BLEND_TOL = 2e-4   # serial product vs chunked cumprod near T = 1e-4
+# x max|g| per column group: the JAX gradient bar. The kernel restores T by
+# division where the plain version replays a chunked product, and its
+# atomics add in an order that changes from run to run.
+GRAD_TOL = 2e-5
+GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
+          "opacity": [8]}
 
 
 @pytest.fixture
@@ -79,14 +85,8 @@ def random_stream(rng, settings, counts, n_rows, saturate):
 
 @pytest.mark.parametrize("saturate", [False, True])
 def test_blend_forward_kernel_matches_plain(cuda, saturate):
-    """Tile lists of 0, 1, 255, 256, 257 and 1500 entries (batch
-    boundaries of the 256-thread block), partial edge tiles, and with
-    ``saturate`` broad near-opaque splats so that tiles end early."""
-    rng = np.random.default_rng(7 + saturate)
-    s = RasterSettings(image_height=72, image_width=88)
-    counts = rng.integers(0, 700, s.n_tiles)
-    counts[:6] = [0, 1, 255, 256, 257, 1500]
-    args = random_stream(rng, s, counts, 3000, saturate)
+    """See ``blend_case``; with ``saturate`` tiles end early."""
+    s, args = blend_case(saturate)
     plain = entry_blend.blend_forward_plain(*args, s)
     if saturate:
         assert plain.chunks_skipped > 0, "fixture no longer saturates"
@@ -99,6 +99,79 @@ def test_blend_forward_kernel_matches_plain(cuda, saturate):
     torch.testing.assert_close(tfinal.cpu(), plain.tfinal, atol=BLEND_TOL,
                                rtol=0)
     assert (cpre[0] == 0).all() and (tfinal[0] == 1).all()   # empty tile
+
+
+def blend_case(saturate):
+    """The blend kernels' fixture: tile lists of 0, 1, 255, 256, 257 and
+    1500 entries (batch boundaries of the 256-thread block), partial edge
+    tiles, and with ``saturate`` broad near-opaque splats."""
+    rng = np.random.default_rng(7 + saturate)
+    s = RasterSettings(image_height=72, image_width=88)
+    counts = rng.integers(0, 700, s.n_tiles)
+    counts[:6] = [0, 1, 255, 256, 257, 1500]
+    return s, random_stream(rng, s, counts, 3000, saturate)
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+def test_blend_forward_n_last_matches_plain(cuda, saturate):
+    """The kernel's n_last (one past each pixel's last contributing entry)
+    against the plain forward's. A pixel may differ where the serial and
+    the chunked products of T round to opposite sides of eps, as for the
+    forward's 2e-4 bar; such pixels are rare."""
+    s, args = blend_case(saturate)
+    plain = entry_blend.blend_forward_plain(*args, s)
+    cpre, tfinal, n_last = entry_blend.blend_forward(
+        *(a.to(cuda) for a in args), s, for_backward=True)
+    torch.cuda.synchronize()
+    assert n_last.dtype == torch.int32 and n_last.shape == plain.n_last.shape
+    same = (n_last.cpu() == plain.n_last).float().mean()
+    assert same >= 0.999, float(same)
+    assert (n_last.cpu() <= args[3][:, None]).all()
+    assert (n_last[0] == 0).all() and int(n_last.max()) > 0
+    torch.testing.assert_close(cpre.cpu(), plain.cpre, atol=BLEND_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+def test_blend_backward_kernel_matches_plain(cuda, saturate):
+    s, args = blend_case(saturate)
+    rng = np.random.default_rng(11 + saturate)
+    P = s.tile * s.tile
+    g_cpre = torch.as_tensor(rng.normal(size=(s.n_tiles, 3, P)).astype(
+        np.float32))
+    g_tfinal = torch.as_tensor(rng.normal(size=(s.n_tiles, 1, P)).astype(
+        np.float32))
+    fwd = entry_blend.blend_forward_plain(*args, s)
+    want = entry_blend.blend_backward_plain(
+        *args, s, fwd.tfinal, fwd.tin, g_cpre, g_tfinal).g_table
+    dev = [a.to(cuda) for a in args]
+    _, tfinal, n_last = entry_blend.blend_forward(*dev, s, for_backward=True)
+    before = entry_blend.blend_backward.launches
+    got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
+                                     g_cpre.to(cuda), g_tfinal.to(cuda))
+    torch.cuda.synchronize()
+    assert entry_blend.blend_backward.launches == before + 1
+    assert got.shape == want.shape and got.device.type == "cuda"
+    got = got.cpu()
+    assert torch.isfinite(got).all() and (got[-1] == 0).all()  # sentinel
+    for name, cols in GROUPS.items():
+        ref = float(want[:, cols].abs().max())
+        assert ref > 0, name
+        torch.testing.assert_close(got[:, cols], want[:, cols],
+                                   atol=GRAD_TOL * ref, rtol=0, msg=name)
+
+
+def test_blend_backward_autograd_launches_both_kernels(cuda):
+    s, args = blend_case(False)
+    table = args[0].to(cuda).requires_grad_(True)
+    f0 = entry_blend.blend_forward.launches
+    b0 = entry_blend.blend_backward.launches
+    cpre, tfinal = entry_blend.blend_entry_stream(
+        table, *(a.to(cuda) for a in args[1:]), s)
+    (cpre.sum() + tfinal.sum()).backward()
+    torch.cuda.synchronize()
+    assert entry_blend.blend_forward.launches == f0 + 1
+    assert entry_blend.blend_backward.launches == b0 + 1
+    assert torch.isfinite(table.grad).all() and table.grad.abs().sum() > 0
 
 
 def test_kernel_wrappers_raise_on_bad_cuda_input(cuda):
@@ -127,3 +200,21 @@ def test_kernel_wrappers_raise_on_bad_cuda_input(cuda):
         entry_blend.blend_forward(table, rank.cpu(), per_tile, per_tile, s)
     with pytest.raises(ValueError, match="tiles"):
         entry_blend.blend_forward(table, rank, per_tile[:2], per_tile[:2], s)
+
+    P = s.tile * s.tile
+    tfinal = torch.ones(s.n_tiles, 1, P, device=cuda)
+    n_last = torch.zeros(s.n_tiles, P, dtype=torch.int32, device=cuda)
+    g_cpre = torch.zeros(s.n_tiles, 3, P, device=cuda)
+    good = (table, rank, per_tile, per_tile, s, tfinal, n_last, g_cpre,
+            tfinal)
+    entry_blend.blend_backward(*good)
+    for i, bad, match in (
+            (6, n_last.long(), "int32"),
+            (6, n_last[:, :128].contiguous(), r"must be \("),
+            (7, g_cpre.transpose(1, 2), "3-D|contiguous"),
+            (8, tfinal.cpu(), "must be on"),
+            (0, table.double(), "float32")):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError, match=match):
+            entry_blend.blend_backward(*args)
