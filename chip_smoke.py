@@ -41,6 +41,26 @@ failure:
    ``das3r::`` stage, forward and backward (a backward op belongs to the
    stage whose forward op has its autograd sequence number), the top
    kernels and the idle share.
+10. trainer_scene: a synthetic 12-frame stage-1 scene at 288x512,
+   rearranged, loaded in eval mode (11 train frames) and built by
+   ``das3r_tpu_torch.train.scene_setup.build_scene`` with its defaults on
+   ``cuda``: the dense init capped at 1.5M points, the k-NN scales and the
+   window-path capacity probe (each timed).
+11. window_parity: view 0 of that bundle at full size on the [T, K] window
+   path, K from the probe's largest tile (a multiple of 128, at most
+   16384): ``extract_windows`` bitwise, ``window_blend_forward`` within
+   2e-4, ``window_blend_backward`` within 2e-5 x max|g| per attribute
+   group, each against its plain version, timed and bounded as above; and,
+   where no tile overflows K, the window-path image against the
+   entry-stream image within 2e-4.
+12. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
+   own copy of the bundle, 44 iterations each (4 epochs), densify with
+   clone and split at 10, 20 and 30, an opacity reset at 30, a test
+   report, a save and a checkpoint at 44: once on the entry stream, once
+   on the window path with the probed K. Checks finite losses and
+   parameters, that the loss of iterations 12-22 is below that of 1-11,
+   the written PLY, pose npy, npz and test log, the npz read back equal,
+   and which kernels each run launched.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line. Everything it writes lives under ``build/`` and is removed at exit.
@@ -82,6 +102,14 @@ BLEND_BWD_FLOP_PER_EVAL = 55
 BLEND_BWD_SFU_PER_EVAL = 4
 GRAD_TOL = 2e-5              # x max|g|: the JAX gradient bar
 TRAIN_STEPS = 10
+# window_blend_backward per evaluation: the replay (~15) and the backward
+# (~40) FP32 operations; on the special-function units two exps and the
+# reciprocals of two divisions
+WINDOW_BWD_FLOP_PER_EVAL = 55
+WINDOW_BWD_SFU_PER_EVAL = 4
+TRAINER_FRAMES = 12          # eval mode holds out one: 11 train frames
+TRAINER_ITERS = 44           # 4 epochs of the 11 train frames
+K_CEILING = 16384            # the trainer's max_per_tile regrow ceiling
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -130,10 +158,23 @@ def prefix_bytes(es, need, row_bytes):
 
 
 def kernel_counters():
-    from das3r_tpu_torch.ops.splat import binning, entry_blend
+    from das3r_tpu_torch.ops.splat import binning, entry_blend, window_blend
     return {"extract_chunks": binning.extract_chunks,
             "blend_forward": entry_blend.blend_forward,
-            "blend_backward": entry_blend.blend_backward}
+            "blend_backward": entry_blend.blend_backward,
+            "extract_windows": binning.extract_windows,
+            "window_blend_forward": window_blend.window_forward,
+            "window_blend_backward": window_blend.window_backward}
+
+
+def run_counted(fn):
+    """(fn(), {kernel: launches during the call}): every count set to 0
+    just before, read just after."""
+    counted = kernel_counters()
+    for f in counted.values():
+        f.launches = 0
+    out = fn()
+    return out, {name: f.launches for name, f in counted.items()}
 
 
 def phase_device():
@@ -615,8 +656,10 @@ def phase_train(data, settings, dev):
         raise AssertionError(f"{dropped} entries dropped")
     if not losses[TRAIN_STEPS - 2] < losses[0]:
         raise AssertionError(f"frame 0's loss did not fall: {losses}")
+    # the entry-stream kernels once per step, the window path's never
+    entry = ("extract_chunks", "blend_forward", "blend_backward")
     for name, count in launches.items():
-        if count != TRAIN_STEPS:
+        if count != (TRAIN_STEPS if name in entry else 0):
             raise AssertionError(f"{name} launched {count} times in "
                                  f"{TRAIN_STEPS} train steps")
     emit("train", seconds=time.perf_counter() - t0, setup_seconds=setup_s,
@@ -641,8 +684,9 @@ def stage_times(prof) -> dict:
     number. Operators outside every range (the camera transform,
     activations, the conf gather, gradient accumulation) fall under
     ``render_other``."""
-    top = ("das3r::preprocess", "das3r::bin_entry_stream", "das3r::blend",
-           "das3r::assemble", "das3r::loss", "das3r::adam")
+    top = ("das3r::preprocess", "das3r::bin_entry_stream",
+           "das3r::bin_gaussians", "das3r::blend", "das3r::assemble",
+           "das3r::loss", "das3r::adam")
     events = prof.events()
     backward = "autograd::engine::evaluate_function"
 
@@ -676,7 +720,7 @@ def stage_times(prof) -> dict:
     return out
 
 
-def phase_train_profile(one_step):
+def phase_train_profile(one_step, phase: str = "train_profile"):
     """One more train step under ``torch.profiler``."""
     import torch
     from torch.autograd import DeviceType
@@ -698,7 +742,7 @@ def phase_train_profile(one_step):
     host = sorted((e for e in events if e.device_type == DeviceType.CPU
                    and not e.key.startswith("das3r::")),
                   key=lambda e: -e.self_cpu_time_total)
-    emit("train_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_idle_share=1.0 - busy_ms / wall_ms,
          kernel_launches=sum(e.count for e in kern),
          stages=stages, stages_total_ms=sum(
@@ -709,6 +753,393 @@ def phase_train_profile(one_step):
          device_top=[dict(name=e.key[:100], calls=e.count,
                           ms=e.self_device_time_total / 1e3)
                      for e in kern[:12]])
+
+
+class _Timed:
+    """Wrap ``module.name`` while inside: each call's seconds (after a
+    synchronize) and its result are kept, so that one stage of an entry
+    point can be timed without running it twice."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.seconds, self.results = [], []
+
+    def __enter__(self):
+        import torch
+        self.orig = orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.results.append(out)
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_trainer_scene(dev):
+    """The trainer's scene: 12 synthetic frames at full width, eval split,
+    ``build_scene`` with its defaults (k-NN and probe timed)."""
+    import torch
+    from das3r_tpu_torch.data import readers, rearrange, synthetic
+    from das3r_tpu_torch.models import autosize, gaussians
+    from das3r_tpu_torch.train import scene_setup
+
+    t0 = time.perf_counter()
+    stage1, scene = WORK / "trainer_stage1", WORK / "trainer_scene"
+    synthetic.make_synthetic_stage1_dir(str(stage1), n_frames=TRAINER_FRAMES,
+                                        height=HEIGHT, width=WIDTH,
+                                        seed=SEED + 7)
+    rearrange.rearrange_scene(str(stage1), str(scene))
+    data = readers.load_scene(str(scene), eval_mode=True)
+    io_s = time.perf_counter() - t0
+    with _Timed(gaussians, "knn_mean_sq_dist") as knn, \
+            _Timed(autosize, "probe_capacities") as probe:
+        t1 = time.perf_counter()
+        bundle, launches = run_counted(
+            lambda: scene_setup.build_scene(data, device=dev))
+        build_s = time.perf_counter() - t1
+    stats = probe.results[0]
+    k_probe = min(-(-stats.max_tile // 128) * 128, K_CEILING)
+    n_live = int(bundle.meta.alive.sum())
+    # every synthetic pixel passes the confidence test; the init keeps the
+    # 1.5M most confident of the 11 train frames' pixels
+    if (n_live != min(1_500_000, 11 * HEIGHT * WIDTH)
+            or len(bundle.train_data.images) != 11):
+        raise AssertionError(f"{n_live} live Gaussians, "
+                             f"{len(bundle.train_data.images)} train frames")
+    for name in ("extract_windows", "window_blend_forward"):
+        if launches[name] == 0:
+            raise AssertionError(f"the probe launched no {name}")
+    st = bundle.settings
+    emit("trainer_scene", seconds=time.perf_counter() - t0, io_seconds=io_s,
+         build_scene_seconds=build_s, knn_seconds=knn.seconds,
+         probe_seconds=probe.seconds, probe=stats._asdict(),
+         k_probe=k_probe, n_gaussians=n_live,
+         capacity=int(bundle.params.xyz.shape[0]),
+         settings=dict(max_per_tile=st.max_per_tile,
+                       max_tiles_per_gaussian=st.max_tiles_per_gaussian,
+                       max_total_entries=st.max_total_entries,
+                       light_dup_width=st.light_dup_width,
+                       heavy_rows_cap=st.heavy_rows_cap),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches)
+    return bundle, k_probe, launches
+
+
+def visited_chunk_work(counts, deltas, tin, chunk, eps):
+    """(live slots in the visited chunks, visited chunks) of the window
+    blend: what the serial loops of kernels D and E evaluate per pixel."""
+    import torch
+    n_chunks = tin.shape[1]
+    visited = tin.amax(2) >= eps                               # [T, nc]
+    c = torch.arange(n_chunks, device=tin.device)
+    lo = torch.clamp(deltas.long()[:, None] - c * chunk, 0, chunk)
+    hi = torch.clamp((deltas + counts).long()[:, None] - c * chunk, 0, chunk)
+    slots = torch.where(visited, hi - lo, torch.zeros_like(lo))
+    return int(slots.sum()), int(visited.sum())
+
+
+def phase_window_parity(bundle, k_probe: int, dev):
+    """Kernels D, E, F against their plain versions on view 0 of the
+    trainer's bundle at full size, with K from the probe."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.models.gaussians import per_gaussian_conf
+    from das3r_tpu_torch.ops.splat import binning, window_blend
+    from das3r_tpu_torch.ops.splat.preprocess import preprocess
+
+    t0 = time.perf_counter()
+    s = dataclasses.replace(bundle.settings, max_per_tile=k_probe,
+                            entry_stream=False)
+    params, meta, poses = bundle.params, bundle.meta, bundle.poses
+    fovx, fovy = (float(bundle.train_data.fovx[0]),
+                  float(bundle.train_data.fovy[0]))
+    results = []
+    with torch.no_grad():
+        # view 0 as render(mode="train") preprocesses it
+        xyz_cam, rot_cam = render_mod._camera_frame_gaussians(
+            params, poses.pose(0))
+        view, proj, campos, tfx, tfy = render_mod._raster_common(
+            fovx, fovy, dev)
+        opacity = (torch.sigmoid(params.opacity)
+                   * per_gaussian_conf(params, meta)[:, None]
+                   * meta.alive[:, None])
+        prep = preprocess(
+            xyz_cam, opacity, s, viewmatrix=view, projmatrix=proj,
+            campos=campos,
+            shs=torch.cat([params.features_dc, params.features_rest], 1),
+            scales=torch.exp(params.scaling), rotations=rot_cam,
+            tan_fovx=tfx, tan_fovy=tfy)
+        n = prep.depth.shape[0]
+
+        # --- kernel F: extract_windows --------------------------------
+        ks = binning._sorted_key_stream(prep, s)
+        keys = binning._pad128(ks.sorted_packed,
+                               ((s.n_tiles + 1) << ks.nbits) - 1,
+                               extra=k_probe + 128)
+        bounds = torch.searchsorted(keys, torch.arange(
+            s.n_tiles + 1, dtype=torch.int64, device=dev) << ks.nbits)
+        start = bounds[:-1].contiguous()
+        full_count = bounds[1:] - start
+        args_f = (keys, start, k_probe, ks.nbits, n)
+        got = binning.extract_windows(*args_f)
+        want = binning.extract_windows_plain(*args_f)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"extract_windows differs on "
+                                 f"{int((got != want).sum())} slots")
+        mask = (1 << ks.nbits) - 1
+        win_idx = start[:, None] + torch.arange(k_probe, device=dev)
+        # distinct keys the windows cover (the windows overlap)
+        cover = torch.zeros(keys.numel() + 1, dtype=torch.int32, device=dev)
+        cover.index_add_(0, start, torch.ones_like(start, dtype=torch.int32))
+        cover.index_add_(0, torch.clamp_max(start + k_probe, keys.numel()),
+                         -torch.ones_like(start, dtype=torch.int32))
+        keys_read = int((torch.cumsum(cover, 0)[:-1] > 0).sum())
+        nbytes = keys_read * 8 + start.numel() * 8 + got.numel() * 4
+        b_ms, b_by = bound(nbytes)
+        results.append(dict(
+            name="extract_windows", route="cuda",
+            source="das3r_tpu_torch/csrc/extract_windows.cu",
+            replaces="das3r_tpu/ops/splat/binning.py:96",
+            max_abs_err=0.0,
+            ms=time_ms(lambda: binning.extract_windows(*args_f)),
+            plain_ms=time_ms(lambda: binning.extract_windows_plain(*args_f)),
+            library_ms=time_ms(lambda: torch.clamp_max(
+                keys[win_idx] & mask, n - 1).to(torch.int32)),
+            bound_ms=b_ms, bound_by=b_by, slots=got.numel(),
+            keys_read=keys_read, bytes=nbytes))
+
+        # --- kernel D: window_blend_forward ---------------------------
+        bins = binning.bin_gaussians(prep, s)
+        attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                          prep.opacity[:, None]], 1)
+        attrs = attr[bins.order][bins.rank].transpose(1, 2).contiguous()
+        bg = torch.zeros(3, device=dev)
+        args_d = (attrs, bins.count, bins.delta, bg, s)
+        out = window_blend.window_forward(*args_d)
+        plain = window_blend.window_forward_plain(*args_d)
+        torch.cuda.synchronize()
+        errs = {name: float((a - b).abs().max())
+                for name, a, b in zip(("colors", "tfinal", "tin"), out,
+                                      plain)}
+        if not max(errs.values()) <= BLEND_TOL:
+            raise AssertionError(f"window_blend_forward err {errs}")
+        chunk = window_blend._pick_chunk(attrs.shape[2])
+        slots, n_vis = visited_chunk_work(bins.count, bins.delta, plain[2],
+                                          chunk, s.transmittance_eps)
+        P = s.tile * s.tile
+        evals = slots * P
+        in_bytes = (n_vis * chunk * 9 * 4
+                    + (bins.count.numel() + bins.delta.numel()) * 4)
+        out_bytes = sum(x.numel() * 4 for x in out)
+        ops_s = max(evals * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+                    evals / SFU_OPS_PER_S)
+        b_ms, b_by = bound(in_bytes + out_bytes, ops_s)
+        results.append(dict(
+            name="window_blend_forward", route="cuda",
+            source="das3r_tpu_torch/csrc/window_blend_forward.cu",
+            replaces="das3r_tpu/ops/splat/pallas_blend.py:145",
+            max_abs_err=max(errs.values()), err_by_output=errs,
+            ms=time_ms(lambda: window_blend.window_forward(*args_d)),
+            plain_ms=time_ms(lambda: window_blend.window_forward_plain(
+                *args_d)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            k_width=int(attrs.shape[2]), chunk=chunk, visited_chunks=n_vis,
+            visited_live_slots=slots, pixel_slot_evals=evals,
+            live_slots=int(bins.count.sum()),
+            tile_overflow=int((full_count > k_probe).sum()),
+            bytes=in_bytes + out_bytes))
+
+        # --- kernel E: window_blend_backward --------------------------
+        g = torch.as_tensor(np.random.default_rng(SEED + 8).normal(
+            size=tuple(out[0].shape)).astype(np.float32), device=dev)
+        args_e = (attrs, bins.count, bins.delta, bg, g, plain[1], plain[2],
+                  s)
+        got = window_blend.window_backward(*args_e)
+        want = window_blend.window_backward_plain(*args_e)
+        torch.cuda.synchronize()
+        rel = {k: float((got[:, c] - want[:, c]).abs().max()
+                        / want[:, c].abs().max()) for k, c in GROUPS.items()}
+        if not (torch.isfinite(got).all() and max(rel.values()) <= GRAD_TOL):
+            raise AssertionError(f"window_blend_backward err / max|g| {rel}")
+        in_bytes += (g.numel() + plain[1].numel() + plain[2].numel()) * 4
+        out_bytes = got.numel() * 4
+        ops_s = max(evals * WINDOW_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+                    evals * WINDOW_BWD_SFU_PER_EVAL / SFU_OPS_PER_S)
+        b_ms, b_by = bound(in_bytes + out_bytes, ops_s)
+        results.append(dict(
+            name="window_blend_backward", route="cuda",
+            source="das3r_tpu_torch/csrc/window_blend_backward.cu",
+            replaces="das3r_tpu/ops/splat/pallas_blend.py:220",
+            max_abs_err=float((got - want).abs().max()),
+            err_over_max_g=rel,
+            ms=time_ms(lambda: window_blend.window_backward(*args_e)),
+            plain_ms=time_ms(lambda: window_blend.window_backward_plain(
+                *args_e)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            pixel_slot_evals=evals, bytes=in_bytes + out_bytes))
+
+        # --- the window image against the entry-stream image ----------
+        overflow = int((full_count > k_probe).sum())
+        img_err = None
+        if overflow == 0:
+            imgs = [render_mod.render(
+                params, meta, dataclasses.replace(s, entry_stream=es),
+                poses.pose(0), bg, fovx, fovy, mode="train",
+                device=dev).image for es in (False, True)]
+            img_err = float((imgs[0] - imgs[1]).abs().max())
+            if not img_err <= BLEND_TOL:
+                raise AssertionError(f"window image differs from the entry "
+                                     f"stream's by {img_err}")
+    emit("window_parity", seconds=time.perf_counter() - t0, k_width=k_probe,
+         max_tile_entries=int(full_count.max()), tile_overflow=overflow,
+         image_err_vs_entry_stream=img_err,
+         kernels={r["name"]: {k: r[k] for k in
+                              ("max_abs_err", "ms", "plain_ms",
+                               "library_ms", "bound_ms")}
+                  for r in results},
+         window_backward_err_over_max_g=rel)
+    return results
+
+
+def _bundle_copy(bundle):
+    """The bundle with its own parameters, poses and meta (the trainer
+    updates them in place)."""
+    import dataclasses
+
+    def clone(group):
+        return None if group is None else dataclasses.replace(group, **{
+            f.name: getattr(group, f.name).detach().clone()
+            for f in dataclasses.fields(group)})
+    return dataclasses.replace(
+        bundle, params=clone(bundle.params), meta=clone(bundle.meta),
+        poses=clone(bundle.poses), test_poses=clone(bundle.test_poses))
+
+
+def phase_trainer(bundle, k_probe: int, dev):
+    """``train_scene`` on the entry stream and on the window path."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.models import densify as densify_mod
+    from das3r_tpu_torch.train import checkpoint as ckpt
+    from das3r_tpu_torch.train import step as step_mod
+    from das3r_tpu_torch.train import trainer
+    from das3r_tpu_torch.train.config import OptimizationConfig
+
+    cfg = OptimizationConfig(iterations=TRAINER_ITERS, densify_from_iter=5,
+                             densification_interval=10,
+                             densify_until_iter=35, opacity_reset_interval=30)
+    runs, launches = {}, {}
+    want = {"entry_stream": ("extract_chunks", "blend_forward",
+                             "blend_backward"),
+            "window": ("extract_windows", "window_blend_forward",
+                       "window_blend_backward")}
+    for path, settings in (
+            ("entry_stream", bundle.settings),
+            ("window", dataclasses.replace(bundle.settings,
+                                           entry_stream=False,
+                                           max_per_tile=k_probe))):
+        model = WORK / f"trainer_model_{path}"
+        run_bundle = dataclasses.replace(_bundle_copy(bundle),
+                                         settings=settings)
+        warns, progress = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # each step, densify event and save timed (a synchronize after each)
+        with _Timed(step_mod, "train_step") as steps, \
+                _Timed(densify_mod, "densify_and_prune") as dens, \
+                _Timed(ckpt, "save_train_state") as save_npz, \
+                _Timed(ckpt, "save_scene_ply") as save_ply:
+            res, counts = run_counted(lambda: trainer.train_scene(
+                run_bundle, cfg, model_path=str(model), log_every=1,
+                densify=True, densify_clone=True, densify_split=True,
+                testing_iterations={TRAINER_ITERS},
+                saving_iterations={TRAINER_ITERS},
+                checkpoint_iterations={TRAINER_ITERS},
+                progress=progress.append, warn=warns.append, device=dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[path] = counts
+        losses = res.losses
+        state = res.state
+        finite = all(math.isfinite(x) for x in losses) and all(
+            bool(torch.isfinite(getattr(state.params, f.name)).all())
+            for f in dataclasses.fields(state.params))
+        if not finite or len(losses) != TRAINER_ITERS:
+            raise AssertionError(f"{path}: non-finite loss or parameter, or "
+                                 f"{len(losses)} losses: {losses}")
+        early, later = (statistics.mean(losses[0:11]),
+                        statistics.mean(losses[11:22]))
+        if not later < early:
+            raise AssertionError(f"{path}: mean loss of iterations 12-22 "
+                                 f"{later} not below 1-11 {early}")
+        files = [model / "point_cloud" / f"iteration_{TRAINER_ITERS}" /
+                 "point_cloud.ply",
+                 model / "pose" / f"pose_{TRAINER_ITERS}.npy",
+                 model / f"chkpnt{TRAINER_ITERS}.npz", model / "test_log.txt"]
+        missing = [str(f) for f in files if not f.exists()]
+        if missing:
+            raise AssertionError(f"{path}: not written: {missing}")
+        loaded, meta = ckpt.load_train_state(str(files[2]), state,
+                                             meta_template=res.meta)
+        flat = [ckpt._flatten_with_paths(x)
+                for x in (loaded, state, meta, res.meta)]
+        if not (flat[0].keys() == flat[1].keys()
+                and all(np.array_equal(flat[0][k], flat[1][k])
+                        for k in flat[0])
+                and all(np.array_equal(flat[2][k], flat[3][k])
+                        for k in flat[2])):
+            raise AssertionError(f"{path}: the checkpoint reads back "
+                                 "different")
+        for name in want[path]:
+            if counts[name] == 0:
+                raise AssertionError(f"{path}: {name} never launched")
+        st = res.final_settings
+        step_ms = [x * 1e3 for x in steps.seconds]
+        runs[path] = dict(
+            seconds=seconds, ms_per_iter=seconds * 1e3 / TRAINER_ITERS,
+            step_ms_median=statistics.median(step_ms[1:]), step_ms=step_ms,
+            densify_seconds=dens.seconds, save_npz_seconds=save_npz.seconds,
+            save_ply_seconds=save_ply.seconds,
+            iters_per_sec=res.iters_per_sec, losses=losses,
+            mean_loss_1_11=early, mean_loss_12_22=later,
+            test_psnr=res.test_psnr, progress=progress, warnings=warns,
+            alive=int(res.meta.alive.sum()),
+            settings=dict(max_per_tile=st.max_per_tile,
+                          max_tiles_per_gaussian=st.max_tiles_per_gaussian,
+                          max_total_entries=st.max_total_entries,
+                          entry_stream=st.entry_stream),
+            launches=counts)
+        shutil.rmtree(model, ignore_errors=True)
+        # one more step of frame 0 on this path, profiled by das3r:: stage
+        gt0 = torch.as_tensor(bundle.train_data.images[0], device=dev)
+        fov0 = (float(bundle.train_data.fovx[0]),
+                float(bundle.train_data.fovy[0]))
+
+        def one_step(state=state, meta=res.meta, st=st):
+            return step_mod.train_step(state, meta, 0, gt0, *fov0,
+                                       torch.zeros(3, device=dev), st, cfg)
+        one_step()
+        phase_train_profile(one_step, f"trainer_{path}_step_profile")
+        del res, state, loaded, run_bundle, one_step
+        torch.cuda.empty_cache()
+    emit("trainer", iterations=TRAINER_ITERS, runs=runs,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return launches
 
 
 def main() -> int:
@@ -736,22 +1167,32 @@ def main() -> int:
         torch.cuda.empty_cache()
         train, one_step = phase_train(data, settings, "cuda")
         phase_train_profile(one_step)
+        del one_step
+        torch.cuda.empty_cache()
+        bundle, k_probe, build = phase_trainer_scene("cuda")
+        results += phase_window_parity(bundle, k_probe, "cuda")
+        torch.cuda.empty_cache()
+        trainer = phase_trainer(bundle, k_probe, "cuda")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # serving runs the forward kernels once per view and no backward
-    want = {"extract_chunks": N_FRAMES, "blend_forward": N_FRAMES,
-            "blend_backward": 0}
+    # serving runs the entry-stream forward kernels once per view and no
+    # other kernel
+    want = {"extract_chunks": N_FRAMES, "blend_forward": N_FRAMES}
     for kname, count in serve.items():
-        if count != want[kname]:
+        if count != want.get(kname, 0):
             raise AssertionError(
                 f"{kname} launched {count} times over {N_FRAMES} views")
 
     name, power = (x.strip() for x in smi.split(",", 1))
     for r in results:
         k = r["name"]
-        r["launches"] = serve[k] + train[k]
-        r["launches_by_path"] = {"serve_8_views": serve[k],
-                                 f"train_{TRAIN_STEPS}_steps": train[k]}
+        r["launches_by_path"] = {
+            "serve_8_views": serve[k], f"train_{TRAIN_STEPS}_steps": train[k],
+            "build_scene_probe": build[k],
+            f"trainer_entry_stream_{TRAINER_ITERS}_iters":
+                trainer["entry_stream"][k],
+            f"trainer_window_{TRAINER_ITERS}_iters": trainer["window"][k]}
+        r["launches"] = sum(r["launches_by_path"].values())
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": results}), flush=True)

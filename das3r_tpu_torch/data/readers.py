@@ -1,10 +1,12 @@
 """Stage-2 scene reader: the COLMAP-dir + DAS3R side-channel loader of
-``das3r_tpu/data/readers.py`` (numpy only). Produces densely stacked numpy
-arrays; the per-scene dataset is small (<= ~200 frames at 512 px).
+``das3r_tpu/data/readers.py`` (numpy only), and its ``cameras.json``
+writer. Produces densely stacked numpy arrays; the per-scene dataset is
+small (<= ~200 frames at 512 px).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 
@@ -192,3 +194,37 @@ def load_scene(scene_dir: str, eval_mode: bool = False,
         dynamic_mask=dynamic_mask, enlarged_dynamic_mask=enlarged,
         gt_dynamic_mask=gt_dyn, names=names,
         train_idx=train_idx, test_idx=test_idx)
+
+
+def camera_to_json(cam_id: int, name: str, w2c: np.ndarray,
+                   fovx: float, fovy: float, width: int,
+                   height: int) -> dict:
+    """One camera entry in the reference's ``cameras.json`` schema
+    (utils/camera_utils.py:113-133): camera centre, c2w rotation and pixel
+    focal lengths."""
+    c2w = np.linalg.inv(np.asarray(w2c, np.float64))
+    return {
+        "id": int(cam_id),
+        "img_name": str(name),
+        "width": int(width),
+        "height": int(height),
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [row.tolist() for row in c2w[:3, :3]],
+        "fy": float(height / (2.0 * math.tan(float(fovy) * 0.5))),
+        "fx": float(width / (2.0 * math.tan(float(fovx) * 0.5))),
+    }
+
+
+def save_cameras_json(path: str, data: SceneData) -> None:
+    """Write every frame of ``data`` to ``cameras.json`` (the reference
+    Scene's own write of it is commented out, scene/__init__.py:66-71, so
+    this is a convenience artifact)."""
+    entries = [
+        camera_to_json(i, data.names[i] if i < len(data.names) else str(i),
+                       data.poses_w2c_colmap[i], float(data.fovx[i]),
+                       float(data.fovy[i]), data.width, data.height)
+        for i in range(data.n_frames)
+    ]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(entries, f)

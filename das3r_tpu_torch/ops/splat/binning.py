@@ -1,21 +1,32 @@
-"""Depth-ordered tile binning into a 128-aligned entry stream.
+"""Depth-ordered tile binning: the 128-aligned entry stream and the
+[T, K] per-tile windows.
 
-Port of the entry-stream part of ``das3r_tpu/ops/splat/binning.py``: a
-duplication table of (Gaussian, tile) pairs, one sort of self-describing
-``tile << nbits | depth_rank`` keys, then a layout in which each tile's
-depth-ordered segment starts at a multiple of 128 slots.
+Port of ``das3r_tpu/ops/splat/binning.py``: a duplication table of
+(Gaussian, tile) pairs, one sort of self-describing
+``tile << nbits | depth_rank`` keys, then either a layout in which each
+tile's depth-ordered segment starts at a multiple of 128 slots
+(``bin_entry_stream``) or a window of K slots cut at each tile's start
+(``bin_gaussians``, the [T, K] window path).
 
 Differences from the JAX package, by design:
 
 * Keys are int64, so ``(n_tiles + 1) << nbits`` only has to stay below
-  2^63 instead of 2^32.
+  2^63 instead of 2^32. The JAX pair-sort fallback for wider key spaces
+  is never needed.
 * The sort sees only the live pairs (``packed[valid]``, then ``torch.sort``)
   instead of the whole padded table; since keys are unique this equals the
-  live prefix of the JAX full sort.
+  live prefix of the JAX full sort. ``_windows`` pads the live keys with
+  K + 128 sentinels itself, so a window read never leaves the array.
 * With ``max_total_entries=None`` the stream is sized from the real counts
   and drops nothing; a set cap keeps the JAX farthest-first drop policy.
 * The chunk gather plus rank decode is one CUDA kernel
-  (``extract_chunks``, replacing ``_extract_chunks_pallas``).
+  (``extract_chunks``, replacing ``_extract_chunks_pallas``), and so is
+  the window gather plus rank decode (``extract_windows``, replacing
+  ``_extract_windows_pallas``).
+* The split-width duplication table is not ported: a set
+  ``heavy_rows_cap`` is ignored and the full-width table is sorted. Its
+  stream equals the split table's whenever no heavy row overflows.
+  ``depth_sort_bits > 0`` (the quantized-depth binning) is not ported.
 
 Every function here runs on detached inputs: gradients flow through the
 gathered attribute values, never through the indices.
@@ -296,3 +307,154 @@ def bin_entry_stream(prep: Preprocessed,
     with record_function("das3r::entry_stream_from_keys"):
         return entry_stream_from_keys(ks, settings, n,
                                       entry_stream_cap(settings, n))
+
+
+# ---------------------------------------------------------------------------
+# The [T, K] window path
+
+
+class TileBins(NamedTuple):
+    rank: torch.Tensor        # [T, K] int32 depth rank per window slot (junk
+                              # outside [delta, delta + count); at most N-1);
+                              # [T, K + 128] on the aligned row-gather path
+    delta: torch.Tensor       # [T] int32 leading foreign entries per window
+    order: torch.Tensor       # [N] int64 depth rank -> gaussian index
+    count: torch.Tensor       # [T] int32 live slots (at [delta, delta+count))
+    full_count: torch.Tensor  # [T] int32 pre-truncation count
+    dup_overflow: torch.Tensor
+    entry_overflow: torch.Tensor
+    heavy_overflow: torch.Tensor  # [] always 0: no split table
+
+
+def gids(bins: TileBins) -> torch.Tensor:
+    """[T, K] Gaussian index per slot (junk outside the live range)."""
+    return bins.order[bins.rank]
+
+
+def _pad128(keys: torch.Tensor, sentinel: int, extra: int = 0) -> torch.Tensor:
+    """Append ``extra`` sentinels, then more up to a multiple of 128."""
+    e = keys.shape[0]
+    pad = extra + (-(e + extra)) % 128
+    if pad:
+        keys = torch.cat([keys, torch.full((pad,), sentinel, dtype=keys.dtype,
+                                           device=keys.device)])
+    return keys
+
+
+def extract_windows_plain(keys: torch.Tensor, start: torch.Tensor,
+                          k_cap: int, nbits: int, n: int) -> torch.Tensor:
+    """Plain version of the ``extract_windows`` kernel, the per-element
+    gather of ``_windows``: ``rank[t, j] = min(keys[start[t] + j] & mask,
+    n - 1)`` for j < ``k_cap``, the index clipped to the array as in the
+    JAX package. Returns [T, k_cap] int32."""
+    slot = torch.arange(k_cap, dtype=torch.int64, device=keys.device)
+    idx = torch.clamp(start[:, None] + slot, 0, keys.shape[0] - 1)
+    return torch.clamp_max(keys[idx] & ((1 << nbits) - 1), n - 1).to(
+        torch.int32)
+
+
+def extract_windows(keys: torch.Tensor, start: torch.Tensor, k_cap: int,
+                    nbits: int, n: int) -> torch.Tensor:
+    """The [T, K] window gather fused with the rank decode; see
+    ``extract_windows_plain`` for what it computes.
+
+    Replaces the TPU kernel ``das3r_tpu/ops/splat/binning.py::
+    _extract_windows_pallas``, whose row DMA, lane roll and stitch exist
+    only because Mosaic cannot DMA at an element offset. On the H100 it is
+    bound by memory: per slot one 8-byte key read and one 4-byte rank
+    write, so the kernel (csrc/extract_windows.cu) is one thread per slot,
+    consecutive slots of a window on consecutive threads. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if keys.device.type == "cpu":
+        return extract_windows_plain(keys, start, k_cap, nbits, n)
+    kernels.check(keys, "keys", torch.int64, 1)
+    kernels.check(start, "start", torch.int64, 1, keys.device)
+    if not 1 <= nbits <= 62 or not 1 <= n < 2**31 or keys.numel() == 0:
+        raise ValueError(f"nbits={nbits}, n={n}, {keys.numel()} keys: "
+                         "out of range")
+    if not 1 <= k_cap < 2**31 or start.shape[0] > 65535:
+        raise ValueError(f"k_cap={k_cap}, {start.shape[0]} tiles: out of "
+                         "range")
+    rank = torch.empty(start.shape[0], k_cap, dtype=torch.int32,
+                       device=keys.device)
+    kernels.launch("extract_windows", keys.data_ptr(), keys.numel(),
+                   start.data_ptr(), start.shape[0], k_cap, nbits, n,
+                   rank.data_ptr())
+    extract_windows.launches += 1
+    return rank
+
+
+extract_windows.launches = 0
+
+
+def _windows(sorted_keys: torch.Tensor, nbits: int, n: int, n_tiles: int,
+             k_cap: int, use_dma: bool = True):
+    """Cut per-tile [start, start + K) windows from the sorted live keys
+    and decode their depth ranks.
+
+    The keys are padded here with K + 128 sentinels (and up to a multiple
+    of 128), so a window read at any tile start stays in the array. Three
+    implementations with the JAX package's semantics (count =
+    min(full_count, K) nearest entries):
+
+      * K a multiple of 128 and ``use_dma``: the ``extract_windows`` kernel
+        on CUDA at the exact element offset; ``delta`` is 0.
+      * K a multiple of 128 and not ``use_dma``: windows start at the
+        previous multiple of 128 and are a whole-row gather of K + 128
+        entries; the up-to-127 foreign leading entries are reported in
+        ``delta`` and masked by the blend.
+      * otherwise the per-element gather (``extract_windows_plain``).
+
+    Returns (rank [T, K or K+128] int32, delta, count, full_count)."""
+    dev = sorted_keys.device
+    sentinel = ((n_tiles + 1) << nbits) - 1
+    keys = _pad128(sorted_keys, sentinel, extra=k_cap + 128)
+    e = keys.shape[0]
+    boundaries = torch.arange(n_tiles + 1, dtype=torch.int64,
+                              device=dev) << nbits
+    bounds = torch.searchsorted(keys, boundaries)
+    start = bounds[:-1]
+    full_count = (bounds[1:] - start).to(torch.int32)
+    k_pad = k_cap + 128
+    zeros = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    if k_cap % 128 == 0 and use_dma:
+        delta = zeros
+        rank = extract_windows(keys, start, k_cap, nbits, n)
+    elif k_cap % 128 == 0:
+        start_al = torch.clamp_max(start // 128 * 128, e - k_pad)
+        delta = torch.where(full_count > 0, (start - start_al).to(torch.int32),
+                            zeros)
+        widx = (start_al // 128)[:, None] + torch.arange(
+            k_pad // 128, dtype=torch.int64, device=dev)
+        win = keys.reshape(e // 128, 128)[widx].reshape(n_tiles, k_pad)
+        rank = torch.clamp_max(win & ((1 << nbits) - 1), n - 1).to(
+            torch.int32)
+    else:
+        delta = zeros
+        rank = extract_windows_plain(keys, start, k_cap, nbits, n)
+    count = torch.clamp_max(full_count, k_cap)
+    return rank, delta, count, full_count
+
+
+def bin_gaussians(prep: Preprocessed, settings: RasterSettings) -> TileBins:
+    """Bin into [T, K] windows of ``settings.max_per_tile`` slots; a tile
+    with more entries keeps its K nearest (``tile_overflow``)."""
+    s = settings
+    if s.depth_sort_bits > 0:
+        raise NotImplementedError(
+            "depth_sort_bits > 0 (the quantized-depth binning) is not ported "
+            "(ROADMAP.md)")
+    n = prep.depth.shape[0]
+    if not entry_stream_supported(n, s):
+        raise ValueError("(n_tiles + 1) << ceil(log2 N) exceeds the int64 key")
+    with record_function("das3r::sorted_key_stream"):
+        ks = _sorted_key_stream(prep, s)
+    with record_function("das3r::windows"):
+        rank, delta, count, full_count = _windows(
+            ks.sorted_packed, ks.nbits, n, s.n_tiles, s.max_per_tile,
+            s.use_dma_windows)
+    return TileBins(rank=rank, delta=delta, order=ks.order, count=count,
+                    full_count=full_count, dup_overflow=ks.dup_overflow,
+                    entry_overflow=ks.entry_overflow,
+                    heavy_overflow=torch.zeros_like(ks.entry_overflow))

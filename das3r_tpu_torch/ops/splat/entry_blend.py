@@ -65,11 +65,12 @@ def _tile_pixels(settings: RasterSettings, n_tiles: int, dev):
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def _chunk_math(attr, px, py, t_in, settings: RasterSettings):
+def _chunk_math(attr, px, py, t_in, settings: RasterSettings, live=None):
     """Per-(pixel, entry) quantities of one chunk for a batch of tiles:
-    attr [Ta, CHUNK, 9], px/py/t_in [Ta, P] -> tensors [Ta, P, CHUNK]
+    attr [Ta, C, 9], px/py/t_in [Ta, P] -> tensors [Ta, P, C]
     (``_chunk_math`` of the JAX kernel, with a cumulative product in place
-    of its exp-of-log-sum)."""
+    of its exp-of-log-sum). ``live`` [Ta, C], when given, marks the slots
+    that may be valid at all."""
     s = settings
     a_mx, a_my, a_cxx, a_cxy, a_cyy = (attr[:, None, :, i] for i in range(5))
     a_op = attr[:, None, :, 8]
@@ -79,6 +80,8 @@ def _chunk_math(attr, px, py, t_in, settings: RasterSettings):
     alpha_raw = a_op * torch.exp(power)
     alpha = torch.clamp_max(alpha_raw, s.alpha_clip)
     valid = (power <= 0.0) & (alpha >= s.alpha_floor)
+    if live is not None:
+        valid = valid & live[:, None, :]
     a = torch.where(valid, alpha, torch.zeros_like(alpha))
     one_m = 1.0 - a
     prod = torch.cumprod(torch.cat([t_in[:, :, None], one_m], 2), 2)
@@ -88,6 +91,44 @@ def _chunk_math(attr, px, py, t_in, settings: RasterSettings):
     return dict(dx=dx, dy=dy, alpha_raw=alpha_raw, one_m=one_m,
                 cum_before=cum_before, t_after=t_after,
                 contribute=contribute, w=w)
+
+
+def _chunk_grads(attr, m, g_col, svec, settings: RasterSettings):
+    """The JAX backward kernel's per-entry gradients of one chunk, from
+    ``_chunk_math``'s quantities ``m``, the colour cotangents g_col
+    [Ta, P, 3] and the suffix carried in from later entries svec [Ta, P].
+    Per entry and pixel: dalpha = (g . c) T_before - S_i / (1 - alpha)
+    where the entry contributes (S_i: svec plus the later entries of the
+    chunk), zeroed where alpha_raw > alpha_clip; the mean2d, conic and
+    opacity terms follow through the power. Returns (g_rows [Ta, C, 9],
+    the chunk's suffix sum to add to svec [Ta, P])."""
+    s = settings
+    dx, dy, w, alpha_raw = m["dx"], m["dy"], m["w"], m["alpha_raw"]
+    gc_dot = torch.bmm(g_col, attr[:, :, 5:8].transpose(1, 2))
+    e = gc_dot * w
+    # S_i = S + sum_{j > i} e_j: an exclusive suffix sum over the chunk
+    incl = torch.cumsum(e.flip(2), 2).flip(2)
+    s_i = (torch.cat([incl[:, :, 1:], torch.zeros_like(incl[:, :, :1])], 2)
+           + svec[:, :, None])
+    d_alpha = torch.where(
+        m["contribute"],
+        gc_dot * m["cum_before"] - s_i / torch.clamp_min(m["one_m"], 1e-12),
+        torch.zeros_like(w))
+    d_alpha_raw = torch.where(alpha_raw > s.alpha_clip,
+                              torch.zeros_like(d_alpha), d_alpha)
+    d_power = alpha_raw * d_alpha_raw
+    a_cxx, a_cxy, a_cyy = (attr[:, None, :, i] for i in (2, 3, 4))
+    a_op = attr[:, None, :, 8]
+    g_rows = torch.stack([
+        (-(a_cxx * dx + a_cxy * dy) * d_power).sum(1),
+        (-(a_cyy * dy + a_cxy * dx) * d_power).sum(1),
+        (-0.5 * dx * dx * d_power).sum(1),
+        (-dx * dy * d_power).sum(1),
+        (-0.5 * dy * dy * d_power).sum(1),
+        *torch.bmm(w.transpose(1, 2), g_col).unbind(2),
+        ((alpha_raw / torch.clamp_min(a_op, 1e-30)) * d_alpha_raw).sum(1),
+    ], 2)
+    return g_rows, e.sum(2)
 
 
 def blend_forward_plain(table: torch.Tensor, rank: torch.Tensor,
@@ -159,12 +200,10 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
 
     Walks each tile's chunks in reverse, replays each chunk's forward from
     ``tin`` (``blend_forward_plain``), and carries the suffix
-    S = gT * T_final + sum over later entries of (gC . c) w per pixel.
-    Per entry and pixel: dalpha = (gC . c) T_before - S_i / (1 - alpha)
-    where the entry contributes, zeroed where alpha_raw > alpha_clip; the
-    mean2d, conic and opacity gradients follow through the power. A chunk
-    whose entering T is below eps at every pixel holds no contributing
-    entry and is skipped, exactly, as in the forward."""
+    S = gT * T_final + sum over later entries of (gC . c) w per pixel
+    (``_chunk_grads`` gives each entry's terms). A chunk whose entering T
+    is below eps at every pixel holds no contributing entry and is
+    skipped, exactly, as in the forward."""
     s = settings
     dev = table.device
     n_tiles = count.shape[0]
@@ -187,36 +226,9 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
         r = rank[(chunk0[ti] + k)[:, None] * CHUNK + lane]  # [Ta, CHUNK]
         attr = table[r]
         m = _chunk_math(attr, px[ti], py[ti], tin[cidx[ti]], s)
-        dx, dy, w, alpha_raw = m["dx"], m["dy"], m["w"], m["alpha_raw"]
-        gc = g_col[ti]                                     # [Ta, P, 3]
-        gc_dot = torch.bmm(gc, attr[:, :, 5:8].transpose(1, 2))
-        e = gc_dot * w
-        # S_i = S + sum_{j > i} e_j: an exclusive suffix sum over the chunk
-        incl = torch.cumsum(e.flip(2), 2).flip(2)
-        s_i = (torch.cat([incl[:, :, 1:], torch.zeros_like(incl[:, :, :1])],
-                         2) + svec[ti][:, :, None])
-        d_alpha = torch.where(
-            m["contribute"],
-            gc_dot * m["cum_before"] - s_i / torch.clamp_min(m["one_m"],
-                                                            1e-12),
-            torch.zeros_like(w))
-        d_alpha_raw = torch.where(alpha_raw > s.alpha_clip,
-                                  torch.zeros_like(d_alpha), d_alpha)
-        d_power = alpha_raw * d_alpha_raw
-        a_cxx, a_cxy, a_cyy = (attr[:, None, :, i] for i in (2, 3, 4))
-        a_op = attr[:, None, :, 8]
-        g_rows = torch.stack([
-            (-(a_cxx * dx + a_cxy * dy) * d_power).sum(1),
-            (-(a_cyy * dy + a_cxy * dx) * d_power).sum(1),
-            (-0.5 * dx * dx * d_power).sum(1),
-            (-dx * dy * d_power).sum(1),
-            (-0.5 * dy * dy * d_power).sum(1),
-            *torch.bmm(w.transpose(1, 2), gc).unbind(2),
-            ((alpha_raw / torch.clamp_min(a_op, 1e-30))
-             * d_alpha_raw).sum(1),
-        ], 2)                                              # [Ta, CHUNK, 9]
+        g_rows, e_sum = _chunk_grads(attr, m, g_col[ti], svec[ti], s)
         g_table.index_add_(0, r.reshape(-1), g_rows.reshape(-1, N_ATTR))
-        svec[ti] += e.sum(2)
+        svec[ti] += e_sum
     return PlainBlendGrad(g_table=g_table, chunks_skipped=skipped)
 
 

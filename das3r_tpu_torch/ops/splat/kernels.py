@@ -43,6 +43,16 @@ SIGNATURES = {
     # alpha_floor, tfinal, n_last, g_cpre, g_tfinal, g_table_out, stream
     "blend_backward": (_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P,
                        _P),
+    # keys, n_keys, start, n_tiles, k_cap, nbits, n, rank_out, stream
+    "extract_windows": (_P, _L, _P, _I, _I, _I, _I, _P, _P),
+    # attrs, count, delta, bg, n_tiles, K, chunk, tiles_x, alpha_clip,
+    # alpha_floor, eps, colors_out, tfinal_out, tin_out, stream
+    "window_blend_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                             _P, _P, _P, _P),
+    # attrs, count, delta, bg, g_colors, tfinal, tin, n_tiles, K, chunk,
+    # tiles_x, alpha_clip, alpha_floor, eps, g_attrs_out, stream
+    "window_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _F, _F, _F, _P, _P),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

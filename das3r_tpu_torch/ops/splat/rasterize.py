@@ -1,5 +1,5 @@
-"""Public rasterization API: the entry-stream branch of
-``das3r_tpu/ops/splat/rasterize.py``.
+"""Public rasterization API: the entry-stream and [T, K] window branches
+of ``das3r_tpu/ops/splat/rasterize.py``.
 
     image, radii, aux = rasterize(
         means3d, opacities, settings,
@@ -9,11 +9,20 @@
         scales=... / rotations=... | cov3d_precomp=...,
         mean2d_offset=..., device=None)
 
-The [T, K] window branch and the tile-sharded branch of the JAX package
-are not ported yet (ROADMAP.md). Binning runs on detached tensors;
-gradients flow through the depth-ordered attribute table: the blend
-backward gives each table row its gradient, ``permute_rows`` takes it
-back to Gaussian order, and autograd carries it through preprocess.
+The branch follows ``settings.entry_stream`` alone: True takes the exact
+entry stream, False the [T, K] window path (``bin_gaussians``, then
+``window_blend``), which truncates a tile at ``max_per_tile`` entries and
+reports it in ``tile_overflow``. The JAX package also takes the window
+path off the TPU, without ``max_total_entries``, and when the keys do not
+fit 32 bits; the port's entry stream needs none of these (its stream is
+sized from the counts when ``max_total_entries`` is None, and its keys are
+int64). The tile-sharded branch is not ported (ROADMAP.md).
+
+Binning runs on detached tensors; gradients flow through the
+depth-ordered attribute table: the blend backward gives each table row
+(entry stream) or window slot (window path) its gradient, the gather
+from rank to slot and ``permute_rows`` take it back to Gaussian order,
+and autograd carries it through preprocess.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-from das3r_tpu_torch.ops.splat import binning, blend, entry_blend
+from das3r_tpu_torch.ops.splat import binning, blend, entry_blend, window_blend
 from das3r_tpu_torch.ops.splat import preprocess as prep_mod
 from das3r_tpu_torch.ops.splat.settings import RasterSettings
 from das3r_tpu_torch.utils.device import on_device, resolve_device
@@ -58,7 +67,8 @@ def permute_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 class RasterAux(NamedTuple):
     n_contrib_tiles: torch.Tensor   # [T] live Gaussians per tile
-    tile_overflow: torch.Tensor     # [] always 0: the stream has no capacity
+    tile_overflow: torch.Tensor     # [] tiles over max_per_tile (window path;
+                                    #    0 on the entry stream: no capacity)
     dup_overflow: torch.Tensor      # [] Gaussians whose rect was cut by D
     entry_overflow: torch.Tensor    # [] entries dropped by max_total_entries
     max_tiles_touched: torch.Tensor  # [] largest pre-cap rect tile count
@@ -100,9 +110,9 @@ def rasterize(
     Array arguments may be tensors or numpy arrays; they are moved to
     ``device`` (default: CUDA, and a RuntimeError without it)."""
     s = settings
-    if not s.entry_stream or s.table_bf16:
+    if s.table_bf16:
         raise NotImplementedError(
-            "only the exact f32 entry-stream path is ported (ROADMAP.md)")
+            "the bf16 attribute table is not ported (ROADMAP.md)")
     dev = resolve_device(device)
 
     def on(x):
@@ -121,6 +131,8 @@ def rasterize(
             rotations=on(rotations), cov3d_precomp=on(cov3d_precomp),
             mean2d_offset=on(mean2d_offset), tan_fovx=tan_fovx,
             tan_fovy=tan_fovy)
+    if not s.entry_stream:
+        return _rasterize_windows(p, s, on(bg))
     with record_function("das3r::bin_entry_stream"):
         es = binning.bin_entry_stream(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
@@ -142,6 +154,37 @@ def rasterize(
         entry_overflow=es.entry_overflow,
         max_tiles_touched=mtt,
         heavy_overflow=es.heavy_overflow,
+        heavy_rows=hrows, dup_hist=hist,
+    )
+    return img, p.radius, aux
+
+
+def _rasterize_windows(p: prep_mod.Preprocessed, s: RasterSettings, bg):
+    """The [T, K] window branch (rasterize.py:204-246 of the JAX package,
+    its ``backend="pallas"`` form)."""
+    with record_function("das3r::bin_gaussians"):
+        bins = binning.bin_gaussians(
+            prep_mod.Preprocessed(*(x.detach() for x in p)), s)
+    with record_function("das3r::blend"):
+        attr_mat = torch.cat([p.mean2d, p.conic, p.color,
+                              p.opacity[:, None]], 1)
+        # depth-rank order at N scale, then the one [T, K]-scale gather by
+        # rank; its backward is the per-Gaussian sum of the slot gradients
+        attr_rank = permute_rows(attr_mat, bins.order)
+        attrs = attr_rank[bins.rank].transpose(1, 2).contiguous()
+        tiles = window_blend.blend_tiles_window(
+            attrs, bins.count, bins.delta,
+            bg.to(torch.float32).reshape(3).contiguous(), s)
+    with record_function("das3r::assemble"):
+        img = blend.assemble_image(tiles, s)
+        mtt, hrows, hist = _dup_telemetry(p, s)
+    aux = RasterAux(
+        n_contrib_tiles=bins.full_count,
+        tile_overflow=torch.sum(bins.full_count > s.max_per_tile),
+        dup_overflow=bins.dup_overflow,
+        entry_overflow=bins.entry_overflow,
+        max_tiles_touched=mtt,
+        heavy_overflow=bins.heavy_overflow,
         heavy_rows=hrows, dup_hist=hist,
     )
     return img, p.radius, aux

@@ -13,14 +13,21 @@ as follows:
 * ``full_sort_below``: with ``max_total_entries`` set, duplication tables
   larger than this are compacted to the cap before the sort (dropping the
   farthest entries), as in the JAX package.
-* ``tile`` must be 16 on the GPU: the blend kernel runs one thread per pixel
-  of a 16x16 tile.
-* The [T, K] window path (``max_per_tile`` capacity, ``depth_sort_bits``,
-  ``use_dma_windows``), the split-width table (``light_dup_width`` only
-  feeds telemetry, ``heavy_rows_cap``), tile sharding
-  (``entries_per_shard``), the backward reduction (``segsum_*``) and
-  ``table_bf16`` are not ported yet (ROADMAP.md); rasterize rejects
-  ``entry_stream=False`` and ``table_bf16=True``.
+* ``tile`` must be 16 on the GPU: the blend kernels run one thread per
+  pixel of a 16x16 tile.
+* ``entry_stream`` alone picks the raster branch: True the exact entry
+  stream, False the [T, K] window path, whose windows hold
+  ``max_per_tile`` slots (a multiple of 128 or a divisor of 128) and are
+  cut by the ``extract_windows`` kernel or, with ``use_dma_windows=False``,
+  by the aligned row gather. The JAX package also falls back to the window
+  path off the TPU and without ``max_total_entries``; the port does not.
+* Not ported (ROADMAP.md): the split-width duplication table
+  (``heavy_rows_cap`` is accepted and ignored: the full-width table is
+  sorted, which gives the split table's stream whenever no heavy row
+  overflows; ``light_dup_width`` only feeds telemetry), the quantized-depth
+  binning (``depth_sort_bits > 0`` raises), tile sharding
+  (``entries_per_shard``), the backward reduction options (``segsum_*``)
+  and ``table_bf16`` (rasterize raises).
 """
 from __future__ import annotations
 

@@ -57,8 +57,18 @@ def test_rasterize_matches_jax_and_oracle(case):
 
 
 def test_rasterize_refuses_paths_not_ported():
-    _, ts = settings_pair(image_height=32, image_width=32, entry_stream=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rasterize(np.zeros((1, 3), np.float32), np.ones(1, np.float32), ts,
-                  viewmatrix=None, projmatrix=None, campos=None, bg=None,
-                  tan_fovx=0.5, tan_fovy=0.5, device="cpu")
+    """The bf16 attribute table and the quantized-depth binning are not
+    ported: they raise rather than fall back (the window path now is)."""
+    for kw in (dict(table_bf16=True),
+               dict(entry_stream=False, depth_sort_bits=16)):
+        _, ts = settings_pair(image_height=32, image_width=32, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rasterize(np.zeros((1, 3), np.float32), np.ones(1, np.float32),
+                      ts, viewmatrix=np.eye(4, dtype=np.float32),
+                      projmatrix=np.eye(4, dtype=np.float32),
+                      campos=np.zeros(3, np.float32),
+                      bg=np.zeros(3, np.float32), tan_fovx=0.5, tan_fovy=0.5,
+                      scales=np.ones((1, 3), np.float32),
+                      rotations=np.array([[1, 0, 0, 0]], np.float32),
+                      colors_precomp=np.ones((1, 3), np.float32),
+                      device="cpu")
