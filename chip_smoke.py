@@ -9,17 +9,19 @@ failure:
 1. device: needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off.
 2. build: compiles every kernel under ``das3r_tpu_torch/csrc`` with nvcc
-   (one process per source, in parallel) into ``build/torch_ext/``.
+   (one process per source, in parallel) into ``build/torch_ext/``; prints
+   ptxas's registers and spills and the blocks per SM of the kernels that
+   report it.
 3. scene: a synthetic 8-frame stage-1 scene at 288x512, rearranged, plus
    a 1.5M-Gaussian SH-degree-3 scene from a seed, written as the trained
    checkpoint (PLY + stage-1 w2c poses) that the render tool loads.
-4. parity: for view 0 at full size, each kernel against its plain PyTorch
-   version on the card (``extract_chunks`` bitwise, ``blend_forward``
-   within 2e-4 with and without its ``n_last`` output, ``blend_backward``
-   within 2e-5 x max|g| per column group on cotangents from a seed), with
-   CUDA-event times of kernel, plain version and the library call that
-   computes the same function (where one exists), and each kernel's bound
-   from the bytes and operations of this run.
+4. parity: for view 0 of that scene at full size, kernels A, B, C against
+   their plain PyTorch versions on the card (``extract_chunks`` bitwise,
+   ``blend_forward`` within 2e-4 with and without its ``n_last`` output,
+   ``blend_backward`` within 2e-5 x max|g| per column group on cotangents
+   from a seed), with CUDA-event times of kernel, plain version and the
+   library call that computes the same function (where one exists), and
+   each kernel's bound from the bytes and operations of this run.
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
    ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
@@ -46,14 +48,17 @@ failure:
    ``das3r_tpu_torch.train.scene_setup.build_scene`` with its defaults on
    ``cuda``: the dense init capped at 1.5M points, the k-NN scales and the
    window-path capacity probe (each timed).
-11. window_parity: view 0 of that bundle at full size on the [T, K] window
+11. trainer_entry_parity: kernels A, B, C as in phase 4 on view 0 of that
+   bundle's entry stream, the non-saturating scene of the trainer's entry
+   run, where most of their launches run.
+12. window_parity: view 0 of that bundle at full size on the [T, K] window
    path, K from the probe's largest tile (a multiple of 128, at most
    16384): ``extract_windows`` bitwise, ``window_blend_forward`` within
    2e-4, ``window_blend_backward`` within 2e-5 x max|g| per attribute
    group, each against its plain version, timed and bounded as above; and,
    where no tile overflows K, the window-path image against the
    entry-stream image within 2e-4.
-12. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
+13. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
    own copy of the bundle, 44 iterations each (4 epochs), densify with
    clone and split at 10, 20 and 30, an opacity reset at 30, a test
    report, a save and a checkpoint at 44: once on the entry stream, once
@@ -62,10 +67,13 @@ failure:
    the written PLY, pose npy, npz and test log, the npz read back equal,
    and which kernels each run launched.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
-line. Everything it writes lives under ``build/`` and is removed at exit.
-The package is imported from this script's own checkout, so the script
-fails, having printed nothing, when it stands alone.
+Then the ``kernels`` line (A, B, C at the trainer scene with their
+random-scene numbers under ``random_scene``; D, E, F at the trainer
+scene), the ``nvidia-smi`` line, and last the device line. Everything it
+writes lives under ``build/`` and is removed at exit (the kernel
+libraries stay cached in ``build/torch_ext/``). The package is imported
+from this script's own checkout, so the script fails, having printed
+nothing, when it stands alone.
 """
 from __future__ import annotations
 
@@ -113,6 +121,9 @@ K_CEILING = 16384            # the trainer's max_per_tile regrow ceiling
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
+# a kernel's numbers on a phase's line and beside the other scene's
+SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "ms_with_n_last",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")
 
 
 def emit(phase: str, **fields) -> None:
@@ -194,6 +205,17 @@ def phase_device():
     return smi
 
 
+def blocks_per_sm(lib, name: str, chunk: int = 128) -> int | None:
+    """Blocks of kernel ``name`` resident per SM, from the CUDA occupancy
+    calculator, where its library reports it."""
+    import ctypes
+    fn = getattr(lib, f"{name}_blocks_per_sm", None)
+    if fn is None:
+        return None
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(chunk)
+
+
 def phase_build():
     from das3r_tpu_torch.ops.splat import kernels
     t0 = time.perf_counter()
@@ -201,7 +223,10 @@ def phase_build():
     ptxas = {name: [ln.strip() for ln in b["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, b in built.items()}
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    occupancy = {name: blocks_per_sm(kernels.library(name), name)
+                 for name in kernels.SIGNATURES}
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         blocks_per_sm={k: v for k, v in occupancy.items() if v is not None})
 
 
 def phase_scene():
@@ -240,13 +265,12 @@ def phase_scene():
     return scene, model, data
 
 
-def view0_stream(model: Path, data, settings, dev):
-    """Preprocess and bin view 0 of the checkpoint as ``render`` does."""
+def view0_prep(model: Path, data, settings, dev):
+    """Preprocess view 0 of the checkpoint as ``render`` does."""
     import numpy as np
     import torch
     from das3r_tpu_torch.eval.render_tool import load_gaussians_ply
     from das3r_tpu_torch.models import render as render_mod
-    from das3r_tpu_torch.ops.splat import binning
     from das3r_tpu_torch.ops.splat.preprocess import preprocess
     from das3r_tpu_torch.utils.quat import w2c_to_pose
 
@@ -259,34 +283,35 @@ def view0_stream(model: Path, data, settings, dev):
     view, proj, campos, tfx, tfy = render_mod._raster_common(
         float(data.fovx[0]), float(data.fovy[0]), dev)
     opacity = torch.sigmoid(params.opacity) * conf[:, None]
-    prep = preprocess(
+    return preprocess(
         xyz_cam, opacity, settings, viewmatrix=view, projmatrix=proj,
         campos=campos,
         shs=torch.cat([params.features_dc, params.features_rest], 1),
         scales=torch.exp(params.scaling), rotations=rot_cam,
         tan_fovx=tfx, tan_fovy=tfy)
-    es = binning.bin_entry_stream(prep, settings)
-    attr = torch.cat([prep.mean2d, prep.conic, prep.color,
-                      prep.opacity[:, None]], 1)
-    table = torch.cat([attr[es.order], torch.zeros_like(attr[:1])])
-    return prep, es, table.contiguous()
 
 
-def phase_parity(model: Path, data, settings, dev):
-    """Each kernel against its plain version at the main path's shapes."""
+def entry_kernel_parity(prep, settings, dev):
+    """Kernels A, B and C against their plain versions on one view's entry
+    stream (``prep`` binned with ``settings``), timed and bounded at its
+    shapes. Returns (results, the stream's sizes)."""
     import numpy as np
     import torch
     from das3r_tpu_torch.ops.splat import binning, entry_blend
 
-    t0 = time.perf_counter()
-    prep, es, table = view0_stream(model, data, settings, dev)
     n = prep.depth.shape[0]
+    es = binning.bin_entry_stream(prep, settings)
+    attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                      prep.opacity[:, None]], 1)
+    table = torch.cat([attr[es.order], torch.zeros_like(attr[:1])]
+                      ).contiguous()
     ks = binning._sorted_key_stream(prep, settings)
     keys = ks.sorted_packed
     results = []
 
     # --- kernel A: extract_chunks -------------------------------------
-    lay = binning.chunk_layout(keys, ks.nbits, settings)
+    lay = binning.chunk_layout(keys, ks.nbits, settings,
+                               binning.entry_stream_cap(settings, n))
     src0, nlive = lay.src0, lay.nlive
     got = binning.extract_chunks(keys, src0, nlive, ks.nbits, n)
     want = binning.extract_chunks_plain(keys, src0, nlive, ks.nbits, n)
@@ -412,15 +437,25 @@ def phase_parity(model: Path, data, settings, dev):
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         pixel_entry_evals=evals, entries_needed=n_slots,
         max_n_last=int(n_last.max()), bytes=nbytes))
-    emit("parity", seconds=time.perf_counter() - t0, n_gaussians=n,
-         entries=live, stream_slots=es.rank.numel(),
-         max_tile_entries=int(es.count.max()),
-         kernels={r["name"]: {k: r[k] for k in
-                              ("max_abs_err", "ms", "plain_ms",
-                               "library_ms", "bound_ms")}
-                  for r in results},
-        blend_backward_err_over_max_g=rel,
-        blend_forward_ms_with_n_last=results[1]["ms_with_n_last"])
+    sizes = dict(n_gaussians=n, entries=live, stream_slots=es.rank.numel(),
+                 max_tile_entries=int(es.count.max()),
+                 entry_overflow=int(es.entry_overflow))
+    return results, sizes
+
+
+def summary(results):
+    return {r["name"]: {k: r[k] for k in SUMMARY_KEYS if k in r}
+            for r in results}
+
+
+def phase_parity(model: Path, data, settings, dev):
+    """Kernels A, B, C against their plain versions at the serving path's
+    shapes: view 0 of the random scene."""
+    t0 = time.perf_counter()
+    prep = view0_prep(model, data, settings, dev)
+    results, sizes = entry_kernel_parity(prep, settings, dev)
+    emit("parity", seconds=time.perf_counter() - t0, **sizes,
+         kernels=summary(results))
     return results
 
 
@@ -846,6 +881,46 @@ def visited_chunk_work(counts, deltas, tin, chunk, eps):
     return int(slots.sum()), int(visited.sum())
 
 
+def trainer_view0_prep(bundle, settings, dev):
+    """View 0 of the trainer's bundle, preprocessed as
+    ``render(mode="train")`` preprocesses it."""
+    import torch
+    from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.models.gaussians import per_gaussian_conf
+    from das3r_tpu_torch.ops.splat.preprocess import preprocess
+
+    params, meta = bundle.params, bundle.meta
+    xyz_cam, rot_cam = render_mod._camera_frame_gaussians(
+        params, bundle.poses.pose(0))
+    view, proj, campos, tfx, tfy = render_mod._raster_common(
+        float(bundle.train_data.fovx[0]), float(bundle.train_data.fovy[0]),
+        dev)
+    opacity = (torch.sigmoid(params.opacity)
+               * per_gaussian_conf(params, meta)[:, None]
+               * meta.alive[:, None])
+    return preprocess(
+        xyz_cam, opacity, settings, viewmatrix=view, projmatrix=proj,
+        campos=campos,
+        shs=torch.cat([params.features_dc, params.features_rest], 1),
+        scales=torch.exp(params.scaling), rotations=rot_cam,
+        tan_fovx=tfx, tan_fovy=tfy)
+
+
+def phase_trainer_entry_parity(bundle, dev):
+    """Kernels A, B, C against their plain versions on view 0 of the
+    trainer's bundle on the entry stream: the scene of the trainer's entry
+    run, where most of their launches run. Its opacities never saturate a
+    tile, so every pixel walks its tile's whole list."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, bundle.settings, dev)
+        results, sizes = entry_kernel_parity(prep, bundle.settings, dev)
+    emit("trainer_entry_parity", seconds=time.perf_counter() - t0, **sizes,
+         kernels=summary(results))
+    return results
+
+
 def phase_window_parity(bundle, k_probe: int, dev):
     """Kernels D, E, F against their plain versions on view 0 of the
     trainer's bundle at full size, with K from the probe."""
@@ -854,9 +929,7 @@ def phase_window_parity(bundle, k_probe: int, dev):
     import numpy as np
     import torch
     from das3r_tpu_torch.models import render as render_mod
-    from das3r_tpu_torch.models.gaussians import per_gaussian_conf
     from das3r_tpu_torch.ops.splat import binning, window_blend
-    from das3r_tpu_torch.ops.splat.preprocess import preprocess
 
     t0 = time.perf_counter()
     s = dataclasses.replace(bundle.settings, max_per_tile=k_probe,
@@ -866,20 +939,7 @@ def phase_window_parity(bundle, k_probe: int, dev):
                   float(bundle.train_data.fovy[0]))
     results = []
     with torch.no_grad():
-        # view 0 as render(mode="train") preprocesses it
-        xyz_cam, rot_cam = render_mod._camera_frame_gaussians(
-            params, poses.pose(0))
-        view, proj, campos, tfx, tfy = render_mod._raster_common(
-            fovx, fovy, dev)
-        opacity = (torch.sigmoid(params.opacity)
-                   * per_gaussian_conf(params, meta)[:, None]
-                   * meta.alive[:, None])
-        prep = preprocess(
-            xyz_cam, opacity, s, viewmatrix=view, projmatrix=proj,
-            campos=campos,
-            shs=torch.cat([params.features_dc, params.features_rest], 1),
-            scales=torch.exp(params.scaling), rotations=rot_cam,
-            tan_fovx=tfx, tan_fovy=tfy)
+        prep = trainer_view0_prep(bundle, s, dev)
         n = prep.depth.shape[0]
 
         # --- kernel F: extract_windows --------------------------------
@@ -1005,11 +1065,7 @@ def phase_window_parity(bundle, k_probe: int, dev):
     emit("window_parity", seconds=time.perf_counter() - t0, k_width=k_probe,
          max_tile_entries=int(full_count.max()), tile_overflow=overflow,
          image_err_vs_entry_stream=img_err,
-         kernels={r["name"]: {k: r[k] for k in
-                              ("max_abs_err", "ms", "plain_ms",
-                               "library_ms", "bound_ms")}
-                  for r in results},
-         window_backward_err_over_max_g=rel)
+         kernels=summary(results))
     return results
 
 
@@ -1159,7 +1215,7 @@ def main() -> int:
         settings = RasterSettings(image_height=HEIGHT, image_width=WIDTH,
                                   sh_degree=SH_DEGREE, max_per_tile=1024,
                                   max_tiles_per_gaussian=32)
-        results = phase_parity(model, data, settings, "cuda")
+        random_scene = phase_parity(model, data, settings, "cuda")
         torch.cuda.empty_cache()
         phase_reference("cuda")
         serve = phase_main(scene, model)
@@ -1170,6 +1226,14 @@ def main() -> int:
         del one_step
         torch.cuda.empty_cache()
         bundle, k_probe, build = phase_trainer_scene("cuda")
+        # A, B, C at the trainer scene, where most of their launches run;
+        # their serving-scene numbers beside
+        results = phase_trainer_entry_parity(bundle, "cuda")
+        for r, r_random in zip(results, random_scene):
+            r["scene"] = "trainer view 0"
+            r["random_scene"] = {k: r_random[k] for k in SUMMARY_KEYS
+                                 if k in r_random}
+        torch.cuda.empty_cache()
         results += phase_window_parity(bundle, k_probe, "cuda")
         torch.cuda.empty_cache()
         trainer = phase_trainer(bundle, k_probe, "cuda")

@@ -11,46 +11,56 @@
 // no chunk grid: it runs one serial loop per pixel. So this kernel follows
 // the CUDA rasterizer instead. The forward saves, per pixel, n_last: the
 // list positions up to and including its last contributing entry. Each
-// block owns one tile, 256 threads, one per pixel, and walks the tile's
-// list back to front in batches of 256 entries, from the block's largest
-// n_last. A thread sees entry j only if j < n_last[p]; every valid entry it
-// sees contributed in the forward (the entry that crossed eps and all
-// later ones lie at or past n_last), because power, alpha and 1 - alpha are
-// computed by the same expressions as in blend_forward.cu, both built with
-// --fmad=false. Per seen, valid entry, from T = T_final backwards:
-//     T_before = T / (1 - alpha);  w = alpha * T_before
-//     dalpha = (gC . c) T_before - S / (1 - alpha);  S += (gC . c) w
-//     (dalpha = 0 where alpha_raw > alpha_clip)
-//     d_power = alpha_raw * dalpha
-// with S = gT * T_final at the start; then the 9 per-entry terms
-// (mean2d, conic, color, opacity) as in the TPU kernel. The terms of an
-// entry are summed over the block's pixels: a warp shuffle reduction,
-// skipped when no lane of the warp saw the entry, then one shared-memory
-// add per warp. After each batch, each entry's 9 sums go into
-// g_table[rank] with atomicAdd. A table row is in at most
-// max_tiles_per_gaussian tiles' lists, so the atomics rarely collide; their
-// order, and the warps' order in shared memory, vary from run to run, so
-// the result varies in its last bits.
+// block owns one tile, 256 threads, and walks the tile's list back to front
+// from the block's largest n_last, in batches of kNB entries
+// (blend_backward_common.cuh). Pass A, thread = pixel: the pixel sees entry
+// j only if j < n_last[p]; every valid entry it sees contributed in the
+// forward (the entry that crossed eps and all later ones lie at or past
+// n_last), because power, alpha and 1 - alpha are computed by the same
+// expressions as in blend_forward.cu, both built with --fmad=false. Per
+// seen, valid entry, from T = T_final backwards:
+//     r = 1 / (1 - alpha);  T_before = T r;  w = alpha * T_before
+//     dalpha = (gC . c) T_before - S r;  S += (gC . c) w
+//     (dalpha = 0 where alpha_raw > alpha_clip);  d_power = alpha_raw dalpha
+// with S = gT * T_final at the start; d_power and w go to shared memory.
+// r is the fast reciprocal (__fdividef): no decision depends on it, and
+// 1 - alpha >= 1 - alpha_clip keeps it within 2 ulp. Pass B and the combine
+// (the header) reduce each entry over the tile's pixels in a fixed order;
+// then one atomicAdd per entry and column adds its nine sums into
+// g_table[rank]. A table row is in at most max_tiles_per_gaussian tiles'
+// lists, so the atomics rarely collide; their order varies from run to run,
+// so the result varies in its last bits.
 //
-// Bound on the H100: operations. Each seen entry costs a pixel ~50 FP32
-// operations, one exp and two divisions, and a warp that saw it 45
-// shuffles; the bytes are the table rows, ranks and per-pixel vectors, read
-// once per block. The design visits only the list prefix the forward's
-// pixels reached (n_last), which for a dense scene is a small part of the
-// list. Known weakness, left for a later change: as in the forward, one
-// block per tile balances poorly when a few tiles hold most entries, and
-// the reduction costs about as much as the arithmetic.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on the H100: operations, ~55 FP32 and an exp and a reciprocal per
+// seen pixel-entry; the bytes are the table rows, ranks and per-pixel
+// vectors, read once per block. The design before this one reduced the
+// nine terms of every entry with 45 warp shuffles per warp and 72 shared
+// atomics per block, which cost more than the arithmetic. Here a batch
+// costs two shared stores and five shared loads per pixel-entry; each
+// entry's attributes are three broadcast float4 loads; the next batch's
+// ranks and table rows are loaded into registers while pass A runs; and
+// at 38 KB of shared memory and 48 registers five blocks fit on an SM.
+// What is left is instruction issue: ~75 instructions per warp and entry in
+// pass A (the exp is the forward's expf, the power the forward's unfused
+// products), and the barriers of each batch. Known weakness: one block per
+// tile balances poorly when a few tiles hold most entries.
+#include "blend_backward_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per block, one per pixel
-constexpr int kAttr = 9;  // mean_x mean_y conic_xx conic_xy conic_yy r g b op
-constexpr unsigned kFull = 0xffffffffu;
+using namespace blend_bwd;
 
-__global__ void __launch_bounds__(kPix)
+// d_power and w planes (the partials go over them), colour cotangents,
+// then the batch's attributes [kNB][kAttrPad] and ranks [kNB]
+constexpr size_t kSharedBytes =
+    sizeof(float) * (kBatchFloats + kNB * kAttrPad) + sizeof(int32_t) * kNB;
+// within the 48 KB a launch may take without opting in
+static_assert(kSharedBytes <= 48 * 1024, "C's launch needs no opt-in");
+// table values each thread stages per batch
+constexpr int kStage = (kNB * kAttr + kPix - 1) / kPix;
+
+// five blocks per SM, as the shared memory allows: at most 48 registers
+__global__ void __launch_bounds__(kPix, 5)
 blend_backward_kernel(const float* __restrict__ table,
                       const int32_t* __restrict__ rank,
                       const int32_t* __restrict__ astart,
@@ -61,15 +71,18 @@ blend_backward_kernel(const float* __restrict__ table,
                       const float* __restrict__ g_cpre,
                       const float* __restrict__ g_tfinal,
                       float* __restrict__ g_table) {
-  __shared__ float s_attr[kAttr][kPix];
-  __shared__ float s_grad[kAttr][kPix];
-  __shared__ int32_t s_rank[kPix];
+  extern __shared__ float smem[];
+  float* s_dp = smem;                          // [kNB][kRow]; the partials
+  float* s_w = s_dp + kNB * kRow;              // [kNB][kRow]
+  float* s_g = s_w + kNB * kRow;               // [3][kPix]
+  float* s_attr = s_g + 3 * kPix;              // [kNB][kAttrPad]
+  int32_t* s_rank = (int32_t*)(s_attr + kNB * kAttrPad);  // [kNB]
   __shared__ int s_end;
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int lane = p & 31;
-  const float px = (float)((t % tiles_x) * kTile + p % kTile);
-  const float py = (float)((t / tiles_x) * kTile + p / kTile);
+  const int tx0 = (t % tiles_x) * kTile, ty0 = (t / tiles_x) * kTile;
+  const float px = (float)(tx0 + p % kTile);
+  const float py = (float)(ty0 + p / kTile);
   const int64_t beg = astart[t];
   const int64_t pix = (int64_t)t * kPix + p;
   const int my_last = n_last[pix];
@@ -83,83 +96,96 @@ blend_backward_kernel(const float* __restrict__ table,
 
   const float* gc = g_cpre + (int64_t)t * 3 * kPix;
   const float g0 = gc[p], g1 = gc[kPix + p], g2 = gc[2 * kPix + p];
+  s_g[p] = g0;
+  s_g[kPix + p] = g1;
+  s_g[2 * kPix + p] = g2;
   float T = tfinal[pix];
   float S = g_tfinal[pix] * T;
 
-  for (int b = ((end - 1) / kPix) * kPix; b >= 0; b -= kPix) {
-    // Also the barrier that keeps the previous batch's readers and its
-    // flush ahead of the writes below.
-    __syncthreads();
-    const int nb = min(kPix, end - b);
-    if (p < nb) {
-      const int32_t r = rank[beg + b + p];
-      s_rank[p] = r;
-      const float* row = table + (int64_t)r * kAttr;
+  // Element i = p + u * kPix of a batch is attribute i % kAttr of its entry
+  // i / kAttr. The next batch's ranks are loaded before pass A and its
+  // table values after it, so that pass A and pass B hide their latency.
+  int32_t nr[kStage];
+  float nv[kStage];
+  const int b_first = ((end - 1) / kNB) * kNB;
 #pragma unroll
-      for (int a = 0; a < kAttr; ++a) s_attr[a][p] = row[a];
+  for (int u = 0; u < kStage; ++u) {
+    const int i = p + u * kPix;
+    if (i < min(kNB, end - b_first) * kAttr) {
+      nr[u] = rank[beg + b_first + i / kAttr];
+      nv[u] = table[(int64_t)nr[u] * kAttr + i % kAttr];
     }
-#pragma unroll
-    for (int a = 0; a < kAttr; ++a) s_grad[a][p] = 0.0f;
-    __syncthreads();
+  }
 
-    for (int j = nb - 1; j >= 0; --j) {  // uniform over the block
-      float v[kAttr];
+  for (int b = b_first; b >= 0; b -= kNB) {
+    // Also the barrier that keeps the previous batch's combine ahead of the
+    // writes below.
+    __syncthreads();
+    const int nb = min(kNB, end - b);
 #pragma unroll
-      for (int a = 0; a < kAttr; ++a) v[a] = 0.0f;
-      bool seen = false;
+    for (int u = 0; u < kStage; ++u) {
+      const int i = p + u * kPix;
+      if (i < nb * kAttr) {
+        const int j = i / kAttr, a = i % kAttr;
+        if (a == 0) s_rank[j] = nr[u];
+        s_attr[j * kAttrPad + attr_slot(a)] = nv[u];
+      }
+    }
+    __syncthreads();
+    const bool next = b > 0;  // the next batch holds kNB entries
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = p + u * kPix;
+      if (next && i < kNB * kAttr) nr[u] = rank[beg + b - kNB + i / kAttr];
+    }
+
+    // pass A: the pixel's reverse sweep
+    bool any = false;
+#pragma unroll 4
+    for (int j = nb - 1; j >= 0; --j) {  // uniform over the block
+      float d_power = 0.0f, w = 0.0f;
+      const float4 a0 = *(const float4*)(s_attr + j * kAttrPad);
+      const float4 a1 = *(const float4*)(s_attr + j * kAttrPad + 4);
+      const float4 a2 = *(const float4*)(s_attr + j * kAttrPad + 8);
       if (b + j < my_last) {
         // The same expressions as blend_forward.cu, in the same order.
-        const float dx = s_attr[0][j] - px;
-        const float dy = s_attr[1][j] - py;
-        const float power = -0.5f * (s_attr[2][j] * dx * dx +
-                                     s_attr[4][j] * dy * dy) -
-                            s_attr[3][j] * dx * dy;
-        const float alpha_raw = s_attr[8][j] * expf(power);
+        const float dx = a0.x - px;
+        const float dy = a0.y - py;
+        const float power =
+            -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
+        const float alpha_raw = a1.y * expf(power);
         const float alpha = fminf(alpha_clip, alpha_raw);
         if (power <= 0.0f && alpha >= alpha_floor) {
-          seen = true;
-          const float one_m = 1.0f - alpha;
-          const float t_before = T / one_m;
-          const float w = alpha * t_before;
-          const float gdot = g0 * s_attr[5][j] + g1 * s_attr[6][j] +
-                             g2 * s_attr[7][j];
-          float d_alpha = gdot * t_before - S / one_m;
+          any = true;
+          // one_m >= 1 - alpha_clip: the fast reciprocal is within 2 ulp
+          const float inv = __fdividef(1.0f, 1.0f - alpha);
+          const float t_before = T * inv;
+          w = alpha * t_before;
+          const float gdot = g0 * a2.x + g1 * a2.y + g2 * a2.z;
+          float d_alpha = gdot * t_before - S * inv;
           S += gdot * w;
           T = t_before;
           if (alpha_raw > alpha_clip) d_alpha = 0.0f;
-          const float d_power = alpha_raw * d_alpha;
-          const float cxx = s_attr[2][j], cxy = s_attr[3][j],
-                      cyy = s_attr[4][j];
-          v[0] = -(cxx * dx + cxy * dy) * d_power;
-          v[1] = -(cyy * dy + cxy * dx) * d_power;
-          v[2] = -0.5f * dx * dx * d_power;
-          v[3] = -dx * dy * d_power;
-          v[4] = -0.5f * dy * dy * d_power;
-          v[5] = w * g0;
-          v[6] = w * g1;
-          v[7] = w * g2;
-          v[8] = (alpha_raw / fmaxf(s_attr[8][j], 1e-30f)) * d_alpha;
+          d_power = alpha_raw * d_alpha;
         }
       }
-      if (__any_sync(kFull, seen)) {
-#pragma unroll
-        for (int a = 0; a < kAttr; ++a) {
-          float x = v[a];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_down_sync(kFull, x, off);
-          if (lane == 0) atomicAdd(&s_grad[a][j], x);
-        }
-      }
+      s_dp[j * kRow + p] = d_power;
+      s_w[j * kRow + p] = w;
     }
-    __syncthreads();
-    if (p < nb) {
-      float* dst = g_table + (int64_t)s_rank[p] * kAttr;
 #pragma unroll
-      for (int a = 0; a < kAttr; ++a) {
-        const float x = s_grad[a][p];
-        if (x != 0.0f) atomicAdd(dst + a, x);
-      }
+    for (int u = 0; u < kStage; ++u) {
+      const int i = p + u * kPix;
+      if (next && i < kNB * kAttr)
+        nv[u] = table[(int64_t)nr[u] * kAttr + i % kAttr];
+    }
+    if (!__syncthreads_or(any)) continue;  // no pixel saw the batch
+
+    reduce_batch(s_dp, s_w, s_g, s_attr, nb, (float)tx0, (float)ty0);
+    __syncthreads();
+    for (int i = p; i < kAttr * nb; i += kPix) {
+      const int a = i / nb, j = i - a * nb;
+      const float x = entry_grad(s_dp, s_attr + j * kAttrPad, a, j);
+      if (x != 0.0f) atomicAdd(g_table + (int64_t)s_rank[j] * kAttr + a, x);
     }
   }
 }
@@ -173,10 +199,16 @@ extern "C" int blend_backward_launch(const void* table, const void* rank,
                                      const void* tfinal, const void* n_last,
                                      const void* g_cpre, const void* g_tfinal,
                                      void* g_table, void* stream) {
-  blend_backward_kernel<<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+  if (n_tiles == 0) return 0;
+  blend_backward_kernel<<<n_tiles, kPix, kSharedBytes, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
       (const int32_t*)count, tiles_x, alpha_clip, alpha_floor,
       (const float*)tfinal, (const int32_t*)n_last, (const float*)g_cpre,
       (const float*)g_tfinal, (float*)g_table);
   return (int)cudaGetLastError();
+}
+
+// Blocks resident per SM (chunk is not used: the batch has a fixed size).
+extern "C" int blend_backward_blocks_per_sm(int chunk) {
+  return blocks_per_sm(blend_backward_kernel, kSharedBytes);
 }

@@ -301,13 +301,14 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
 
     Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
     _backward_kernel`` and the XLA reduction of its per-entry gradients to
-    table rows (``_bwd``). On the H100 it is bound by operations (~50 FP32
-    operations, one exp and two divisions per pixel-entry evaluation, plus
-    a block reduction per entry), so the kernel (csrc/blend_backward.cu)
-    keeps each batch of entries in shared memory, visits only the list
-    prefix that the forward's pixels reached, sums each entry over the
-    tile's pixels in registers and shared memory, and adds the sums into
-    the table rows with one atomic per entry and column. A CPU tensor
+    table rows (``_bwd``). On the H100 it is bound by operations (~55 FP32
+    operations, one exp and one reciprocal per pixel-entry evaluation), so
+    the kernel (csrc/blend_backward.cu) visits only the list prefix that
+    the forward's pixels reached, in batches of 16 entries: each pixel
+    sweeps a batch back to front and leaves two scalars per entry in
+    shared memory, then each entry's nine sums are reduced over the tile's
+    pixels in registers, combined in a fixed order and added into the table
+    rows with one atomic per entry and column. A CPU tensor
     takes the plain version, which replays each chunk from the per-chunk
     transmittance of the plain forward, run again here (it does not need
     ``n_last``); a CUDA tensor launches the kernel.

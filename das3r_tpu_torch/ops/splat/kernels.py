@@ -5,8 +5,9 @@ library with a plain C interface, loaded with ``ctypes``. No source
 includes PyTorch's headers, so a build takes seconds, not minutes. All
 kernels are built together, one ``nvcc`` process per source started at
 once, at the first launch of any of them, into ``build/torch_ext/`` at the
-root of the checkout. A library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library never loads.
+root of the checkout. A library's file name carries a hash of its source,
+of every shared header (``csrc/*.cuh``) and of the flags, so an edited
+source or header is rebuilt and a stale library never loads.
 
 Every launch function takes the device pointers, the sizes and the CUDA
 stream, launches on that stream without synchronising, and returns
@@ -69,6 +70,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -188,12 +188,13 @@ def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
     ``tfinal`` and ``tin``; see ``window_backward_plain``.
 
     Replaces the TPU kernel ``das3r_tpu/ops/splat/pallas_blend.py::
-    _backward_kernel``. On the H100 it is bound by operations (a replay and
-    ~40 FP32 operations, an exp and a division per pixel-slot evaluation,
-    and a nine-value warp reduction per slot), so the kernel
-    (csrc/window_blend_backward.cu) keeps each chunk's attributes and its
-    pixels' replayed transmittances in shared memory and writes each slot's
-    sums directly (a slot belongs to one tile: no atomics). A CPU tensor
+    _backward_kernel``. On the H100 it is bound by operations (two replays
+    and ~30 FP32 operations, two exps and a division per pixel-slot
+    evaluation), so the kernel (csrc/window_blend_backward.cu) replays each
+    chunk's transmittances in sub-batches of 16 slots, leaves two scalars
+    per pixel-slot in shared memory, reduces each slot over the tile's
+    pixels in registers in a fixed order and writes its sums directly (a
+    slot belongs to one tile: no atomics, deterministic). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel."""
     if attrs.device.type == "cpu":
         return window_backward_plain(attrs, counts, deltas, bg, g_colors,

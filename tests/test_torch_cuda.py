@@ -17,9 +17,9 @@ from das3r_tpu_torch.ops.splat import binning, entry_blend, window_blend
 
 pytestmark = pytest.mark.cuda
 BLEND_TOL = 2e-4   # serial product vs chunked cumprod near T = 1e-4
-# x max|g| per column group: the JAX gradient bar. The kernel restores T by
-# division where the plain version replays a chunked product, and its
-# atomics add in an order that changes from run to run.
+# x max|g| per column group: the JAX gradient bar. Kernel C restores T by a
+# fast reciprocal where the plain version replays a chunked product, and
+# its atomics add in an order that changes from run to run.
 GRAD_TOL = 2e-5
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -83,12 +83,12 @@ def random_stream(rng, settings, counts, n_rows, saturate):
             torch.as_tensor(counts.astype(np.int32))]
 
 
-@pytest.mark.parametrize("saturate", [False, True])
-def test_blend_forward_kernel_matches_plain(cuda, saturate):
+@pytest.mark.parametrize("variant", ["sparse", "saturate"])
+def test_blend_forward_kernel_matches_plain(cuda, variant):
     """See ``blend_case``; with ``saturate`` tiles end early."""
-    s, args = blend_case(saturate)
+    s, args = blend_case(variant)
     plain = entry_blend.blend_forward_plain(*args, s)
-    if saturate:
+    if variant == "saturate":
         assert plain.chunks_skipped > 0, "fixture no longer saturates"
     before = entry_blend.blend_forward.launches
     cpre, tfinal = entry_blend.blend_forward(*(a.to(cuda) for a in args), s)
@@ -101,24 +101,44 @@ def test_blend_forward_kernel_matches_plain(cuda, saturate):
     assert (cpre[0] == 0).all() and (tfinal[0] == 1).all()   # empty tile
 
 
-def blend_case(saturate):
+# "sparse": random splats; "saturate": broad near-opaque splats that end
+# tiles early; "gap": tile 5 holds a run of 100 entries of a row far off
+# the image, so whole backward batches are seen by no pixel; "shared_row":
+# the first 64 entries of every tile are one broad faint splat's row, so the
+# backward's table-row atomics collide within and across blocks.
+BLEND_CASES = ["sparse", "saturate", "gap", "shared_row"]
+
+
+def blend_case(variant):
     """The blend kernels' fixture: tile lists of 0, 1, 255, 256, 257 and
-    1500 entries (batch boundaries of the 256-thread block), partial edge
-    tiles, and with ``saturate`` broad near-opaque splats."""
+    1500 entries (batch boundaries of the forward's 256-entry and the
+    backward's 16- or 32-entry batches, and lengths that are multiples of
+    neither), partial edge tiles, and the ``BLEND_CASES`` variant."""
+    saturate = variant == "saturate"
     rng = np.random.default_rng(7 + saturate)
     s = RasterSettings(image_height=72, image_width=88)
     counts = rng.integers(0, 700, s.n_tiles)
     counts[:6] = [0, 1, 255, 256, 257, 1500]
-    return s, random_stream(rng, s, counts, 3000, saturate)
+    args = random_stream(rng, s, counts, 3000, saturate)
+    table, rank, astart, count = args
+    if variant == "gap":
+        table[0, :2] = -1000.0
+        rank[int(astart[5]) + 600:int(astart[5]) + 700] = 0
+    elif variant == "shared_row":
+        table[0] = torch.tensor([44.0, 36.0, 1 / 1600, 0.0, 1 / 1600,
+                                 0.3, 0.6, 0.9, 0.05])
+        for a, c in zip(astart.tolist(), count.tolist()):
+            rank[a:a + min(c, 64)] = 0
+    return s, args
 
 
-@pytest.mark.parametrize("saturate", [False, True])
-def test_blend_forward_n_last_matches_plain(cuda, saturate):
+@pytest.mark.parametrize("variant", ["sparse", "saturate"])
+def test_blend_forward_n_last_matches_plain(cuda, variant):
     """The kernel's n_last (one past each pixel's last contributing entry)
     against the plain forward's. A pixel may differ where the serial and
     the chunked products of T round to opposite sides of eps, as for the
     forward's 2e-4 bar; such pixels are rare."""
-    s, args = blend_case(saturate)
+    s, args = blend_case(variant)
     plain = entry_blend.blend_forward_plain(*args, s)
     cpre, tfinal, n_last = entry_blend.blend_forward(
         *(a.to(cuda) for a in args), s, for_backward=True)
@@ -131,10 +151,10 @@ def test_blend_forward_n_last_matches_plain(cuda, saturate):
     torch.testing.assert_close(cpre.cpu(), plain.cpre, atol=BLEND_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("saturate", [False, True])
-def test_blend_backward_kernel_matches_plain(cuda, saturate):
-    s, args = blend_case(saturate)
-    rng = np.random.default_rng(11 + saturate)
+@pytest.mark.parametrize("variant", BLEND_CASES)
+def test_blend_backward_kernel_matches_plain(cuda, variant):
+    s, args = blend_case(variant)
+    rng = np.random.default_rng(11 + BLEND_CASES.index(variant))
     P = s.tile * s.tile
     g_cpre = torch.as_tensor(rng.normal(size=(s.n_tiles, 3, P)).astype(
         np.float32))
@@ -161,7 +181,7 @@ def test_blend_backward_kernel_matches_plain(cuda, saturate):
 
 
 def test_blend_backward_autograd_launches_both_kernels(cuda):
-    s, args = blend_case(False)
+    s, args = blend_case("sparse")
     table = args[0].to(cuda).requires_grad_(True)
     f0 = entry_blend.blend_forward.launches
     b0 = entry_blend.blend_backward.launches
@@ -245,10 +265,15 @@ def test_extract_windows_kernel_matches_plain(cuda, nbits, k_cap):
     assert torch.equal(got.cpu(), want)
 
 
-def window_case(k_width, saturate, seed=3):
+def window_case(k_width, mode, seed=3):
     """Random [T, 9, K] windows: tile 0 empty, tile 1 full, the rest with
-    random counts and (for K + 128 aligned windows) deltas below 128; with
-    ``saturate`` broad near-opaque splats that end tiles early."""
+    random counts and (for K + 128 aligned windows) deltas below 128; tile 2
+    holds min(120, K) live slots, the first min(64, K / 2) of them far off
+    the image: 16-slot backward sub-batches that no pixel contributes to
+    (two at K = 64, three or more above). ``mode``: "sparse" random splats,
+    "saturate" broad near-opaque splats that end tiles early, "faint"
+    opacities below 0.01, so that a long window is walked to its end."""
+    saturate = mode == "saturate"
     rng = np.random.default_rng(seed + saturate)
     s = RasterSettings(image_height=72, image_width=88)
     t = s.n_tiles
@@ -256,7 +281,7 @@ def window_case(k_width, saturate, seed=3):
     deltas = (rng.integers(0, 128, t) if aligned else np.zeros(t, int))
     counts = rng.integers(0, k_width - deltas + 1)
     deltas[:2] = 0
-    counts[:2] = [0, k_width]
+    counts[:3] = [0, k_width, min(120, k_width - deltas[2])]
     sx, sy = (rng.uniform(20, 60, (2, t, k_width)) if saturate
               else rng.uniform(0.7, 12, (2, t, k_width)))
     rho = rng.uniform(-0.6, 0.6, (t, k_width))
@@ -269,22 +294,25 @@ def window_case(k_width, saturate, seed=3):
     attrs[:, 1] = ty[:, None] + rng.uniform(-8, 24, (t, k_width))
     attrs[:, 2:5] = np.stack([cyy / det, -cxy / det, cxx / det], 1)
     attrs[:, 5:8] = rng.uniform(0, 1, (t, 3, k_width))
-    attrs[:, 8] = (rng.uniform(0.7, 0.99, (t, k_width)) if saturate
-                   else rng.uniform(0.0, 0.99, (t, k_width)))
+    attrs[:, 8] = rng.uniform(*{"sparse": (0.0, 0.99), "saturate": (0.7, 0.99),
+                                "faint": (0.0, 0.01)}[mode], (t, k_width))
+    attrs[2, :2, deltas[2]:deltas[2] + min(64, k_width // 2)] = -1000.0
     return s, [torch.as_tensor(attrs), torch.as_tensor(counts.astype(np.int32)),
                torch.as_tensor(deltas.astype(np.int32)),
                torch.tensor([0.2, 0.5, 0.9])]
 
 
-WINDOW_CASES = [(64, False), (256, False), (256, True), (384, True)]
+# K = 16384 is the trainer's regrow ceiling (max_per_tile)
+WINDOW_CASES = [(64, "sparse"), (256, "sparse"), (256, "saturate"),
+                (384, "saturate"), (16384, "faint")]
 
 
-@pytest.mark.parametrize("k_width,saturate", WINDOW_CASES)
-def test_window_forward_kernel_matches_plain(cuda, k_width, saturate):
+@pytest.mark.parametrize("k_width,mode", WINDOW_CASES)
+def test_window_forward_kernel_matches_plain(cuda, k_width, mode):
     """Kernel D: colours and tfinal within the forward bar; tin's visited
     rows within it too, its unvisited rows exactly 0 where the plain
     version's are; an empty tile gives bg, tfinal 1 and an all-zero tin."""
-    s, args = window_case(k_width, saturate)
+    s, args = window_case(k_width, mode)
     want = window_blend.window_forward_plain(*args, s)
     before = window_blend.window_forward.launches
     got = window_blend.window_forward(*(a.to(cuda) for a in args), s)
@@ -297,31 +325,38 @@ def test_window_forward_kernel_matches_plain(cuda, k_width, saturate):
     colors, tfinal, tin = (x.cpu() for x in got)
     rows = tin.amax(2)            # a visited row reaches eps, others are 0
     assert ((rows == 0) | (rows >= s.transmittance_eps)).all()
-    if not saturate:
+    if mode != "saturate":
         assert torch.equal(rows == 0, want[2].amax(2) == 0)
     assert torch.equal(colors[0], args[3].expand(256, 3))
     assert (tfinal[0] == 1).all() and (tin[0] == 0).all()
-    if saturate:
+    if mode == "saturate":
         chunk = window_blend._pick_chunk(k_width)
         n_vis = (tin.amax(2) >= s.transmittance_eps).sum(1)
         n_run = -(-(args[1] + args[2]) // chunk)
         assert (n_vis < n_run).any(), "fixture no longer saturates"
 
 
-@pytest.mark.parametrize("k_width,saturate", WINDOW_CASES)
-def test_window_backward_kernel_matches_plain(cuda, k_width, saturate):
-    """Kernel E against the plain backward on the plain forward's tfinal
-    and tin, per attribute group within 2e-5 x max|g|; zero outside the
-    live slots."""
-    s, args = window_case(k_width, saturate)
+def window_backward_inputs(k_width, mode):
+    """(settings, the window_backward arguments on the CPU): the case's
+    windows, colour cotangents from a seed, the plain forward's tfinal and
+    tin."""
+    s, args = window_case(k_width, mode)
     _, tfinal, tin = window_blend.window_forward_plain(*args, s)
     g = torch.as_tensor(np.random.default_rng(k_width).normal(
         size=(s.n_tiles, 256, 3)).astype(np.float32))
-    want = window_blend.window_backward_plain(*args, g, tfinal, tin, s)
+    return s, [*args, g, tfinal, tin]
+
+
+@pytest.mark.parametrize("k_width,mode", WINDOW_CASES)
+def test_window_backward_kernel_matches_plain(cuda, k_width, mode):
+    """Kernel E against the plain backward on the plain forward's tfinal
+    and tin, per attribute group within 2e-5 x max|g|; zero outside the
+    live slots."""
+    s, bargs = window_backward_inputs(k_width, mode)
+    args = bargs[:4]
+    want = window_blend.window_backward_plain(*bargs, s)
     before = window_blend.window_backward.launches
-    got = window_blend.window_backward(
-        *(a.to(cuda) for a in args), g.to(cuda), tfinal.to(cuda),
-        tin.to(cuda), s)
+    got = window_blend.window_backward(*(a.to(cuda) for a in bargs), s)
     torch.cuda.synchronize()
     assert window_blend.window_backward.launches == before + 1
     got = got.cpu()
@@ -338,8 +373,22 @@ def test_window_backward_kernel_matches_plain(cuda, k_width, saturate):
                                    atol=GRAD_TOL * ref, rtol=0, msg=name)
 
 
+@pytest.mark.parametrize("k_width,mode", [(256, "sparse"),
+                                          (16384, "faint")])
+def test_window_backward_kernel_is_deterministic(cuda, k_width, mode):
+    """Kernel E writes each slot once, summed in a fixed order: two
+    launches on the same inputs agree bit for bit."""
+    s, bargs = window_backward_inputs(k_width, mode)
+    dev = [a.to(cuda) for a in bargs]
+    first = window_blend.window_backward(*dev, s)
+    second = window_blend.window_backward(*dev, s)
+    torch.cuda.synchronize()
+    assert first.abs().max() > 0
+    assert torch.equal(first, second)
+
+
 def test_window_blend_autograd_launches_both_kernels(cuda):
-    s, args = window_case(256, False)
+    s, args = window_case(256, "sparse")
     attrs = args[0].to(cuda).requires_grad_(True)
     bg = args[3].to(cuda).requires_grad_(True)
     f0 = window_blend.window_forward.launches
@@ -357,7 +406,7 @@ def test_window_blend_autograd_launches_both_kernels(cuda):
 
 
 def test_window_wrappers_raise_on_bad_cuda_input(cuda):
-    s, args = window_case(128, False)
+    s, args = window_case(128, "sparse")
     good = [a.to(cuda) for a in args]
     with pytest.raises(ValueError, match="float32"):
         window_blend.window_forward(good[0].double(), *good[1:], s)
