@@ -19,9 +19,13 @@ failure:
    their plain PyTorch versions on the card (``extract_chunks`` bitwise,
    ``blend_forward`` within 2e-4 with and without its ``n_last`` output,
    ``blend_backward`` within 2e-5 x max|g| per column group on cotangents
-   from a seed), with CUDA-event times of kernel, plain version and the
-   library call that computes the same function (where one exists), and
-   each kernel's bound from the bytes and operations of this run.
+   from a seed), with times of kernel, plain version and the library
+   call that computes the same function (where one exists), and each
+   kernel's bound from the bytes and operations of this run. Two times
+   each: ``ms``, CUDA events around one call of the wrapper, its host
+   work included; ``device_ms``, the kernel alone as ``torch.profiler``
+   records it (``library_device_ms``: every kernel of the library call).
+   Both are medians of 10 calls.
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
    ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
@@ -54,10 +58,13 @@ failure:
 12. window_parity: view 0 of that bundle at full size on the [T, K] window
    path, K from the probe's largest tile (a multiple of 128, at most
    16384): ``extract_windows`` bitwise, ``window_blend_forward`` within
-   2e-4, ``window_blend_backward`` within 2e-5 x max|g| per attribute
-   group, each against its plain version, timed and bounded as above; and,
-   where no tile overflows K, the window-path image against the
-   entry-stream image within 2e-4.
+   2e-4 with ``tin``'s zero pattern the plain version's,
+   ``window_blend_backward`` within 2e-5 x max|g| per attribute group on
+   the plain forward's ``tfinal`` and ``tin`` and again on kernel D's,
+   each against its plain version, timed and bounded as above; kernel
+   D's per-tile work (mean, max, the busiest SM's sum with block b on SM
+   b mod the SM count) and blocks per SM; and, where no tile overflows
+   K, the window-path image against the entry-stream image within 2e-4.
 13. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
    own copy of the bundle, 44 iterations each (4 epochs), densify with
    clone and split at 10, 20 and 30, an opacity reset at 30, a test
@@ -122,8 +129,9 @@ K_CEILING = 16384            # the trainer's max_per_tile regrow ceiling
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
 # a kernel's numbers on a phase's line and beside the other scene's
-SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "ms_with_n_last",
-                "plain_ms", "library_ms", "bound_ms", "bound_by")
+SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "device_ms",
+                "ms_with_n_last", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")
 
 
 def emit(phase: str, **fields) -> None:
@@ -131,7 +139,8 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up:
+    a wrapper's time, its host work included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -145,6 +154,53 @@ def time_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 10,
+              max_sessions: int = 20) -> float:
+    """Median over ``reps`` calls of ``fn`` (after one warm-up) of the
+    device time ``torch.profiler`` records: the CUDA kernel whose name
+    contains ``kernel`` alone, or, with None, the kernels, copies and
+    fills that the call's PyTorch operators launch.
+
+    Profiler sessions of ``reps`` calls each run until ``reps`` whole
+    calls were seen: on the H100 machine, late in a long process, a
+    session kept the device records of only its last few calls (an early
+    one kept all). A call is whole when its record is there (``kernel``)
+    or when its range holds as many kernels as the fullest range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def n_kernels(e):
+        return len(e.kernels) + sum(n_kernels(c) for c in e.cpu_children)
+
+    fn()
+    torch.cuda.synchronize()
+    calls: list[tuple[int, float]] = []   # (kernels seen, device us)
+    for _ in range(max_sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function("device_ms.call"):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if kernel is not None:
+            calls += [(1, e.device_time_total) for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and kernel in e.name]
+        else:
+            calls += [(n_kernels(e), e.device_time_total) for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name == "device_ms.call"]
+        full = max((n for n, _ in calls), default=0)
+        times = [t for n, t in calls if n == full > 0]
+        if len(times) >= reps:
+            return statistics.median(times[:reps]) / 1e3
+    seen = sorted({(e.name[:60], str(e.device_type)) for e in events})
+    raise AssertionError(f"{max_sessions} profiler sessions saw {len(times)} "
+                         f"whole calls of {kernel or 'the call'}: {seen[:40]}")
 
 
 def bound(nbytes: float, ops_seconds: float = 0.0) -> tuple[float, str]:
@@ -321,22 +377,37 @@ def entry_kernel_parity(prep, settings, dev):
         raise AssertionError(f"extract_chunks differs on {bad} slots")
     if not torch.equal(got, es.rank):
         raise AssertionError("extract_chunks disagrees with the stream")
+    # the library call computes A's function: gather, decode, clamp, dead
+    # lanes, int32
     lane = torch.arange(binning.CHUNK, device=dev)
     idx = torch.clamp_max(src0[:, None] + lane, max(keys.numel() - 1, 0)
                           ).reshape(-1)
+    live_lane = (lane < nlive[:, None]).reshape(-1)
+    mask = (1 << ks.nbits) - 1
+
+    def library():
+        return torch.where(live_lane, torch.clamp_max(keys[idx] & mask, n - 1),
+                           n).to(torch.int32)
+
+    if not torch.equal(library(), got):
+        raise AssertionError("extract_chunks' library call differs")
     nbytes = (keys.numel() * 8 + src0.numel() * 8 + nlive.numel() * 4
               + got.numel() * 4)
     b_ms, b_by = bound(nbytes)
+
+    def kernel():
+        return binning.extract_chunks(keys, src0, nlive, ks.nbits, n)
     results.append(dict(
         name="extract_chunks", route="cuda",
         source="das3r_tpu_torch/csrc/extract_chunks.cu",
         replaces="das3r_tpu/ops/splat/binning.py:563",
-        max_abs_err=0.0,
-        ms=time_ms(lambda: binning.extract_chunks(keys, src0, nlive,
-                                                  ks.nbits, n)),
+        max_abs_err=0.0, ms=time_ms(kernel),
+        device_ms=device_ms(kernel, "extract_chunks_kernel"),
         plain_ms=time_ms(lambda: binning.extract_chunks_plain(
             keys, src0, nlive, ks.nbits, n)),
-        library_ms=time_ms(lambda: keys[idx]),
+        library_ms=time_ms(library), library_device_ms=device_ms(library),
+        library_call="torch.where(live, torch.clamp_max(keys[idx] & mask, "
+                     "n - 1), n).to(torch.int32)",
         bound_ms=b_ms, bound_by=b_by,
         slots=got.numel(), live_slots=int(nlive.sum()), bytes=nbytes))
 
@@ -370,7 +441,7 @@ def entry_kernel_parity(prep, settings, dev):
         max_abs_err=max_err, mean_abs_err=mean_err,
         plain_ms=time_ms(lambda: entry_blend.blend_forward_plain(
             table, es.rank, es.astart, es.count, settings)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
         entries=live, entries_needed=n_slots,
         pixel_entry_evals=n_eval,
         evals_if_no_saturation=live * settings.tile * settings.tile,
@@ -392,6 +463,7 @@ def entry_kernel_parity(prep, settings, dev):
     turns = [time_ms(lambda b=b: fwd(b)) for b in (False, True, True, False)]
     results[-1].update(
         ms=(turns[0] + turns[3]) / 2, ms_with_n_last=(turns[1] + turns[2]) / 2,
+        device_ms=device_ms(lambda: fwd(False), "blend_forward_kernel"),
         ms_turns_off_on_on_off=turns, max_abs_err_with_n_last=err_n,
         n_last_agrees=float((n_last == plain.n_last).float().mean()))
 
@@ -432,9 +504,12 @@ def entry_kernel_parity(prep, settings, dev):
         err_over_max_g=rel,
         ms=time_ms(lambda: entry_blend.blend_backward(
             *bwd_args, tfinal_n, n_last, g_cpre, g_tfinal)),
+        device_ms=device_ms(lambda: entry_blend.blend_backward(
+            *bwd_args, tfinal_n, n_last, g_cpre, g_tfinal),
+            "blend_backward_kernel"),
         plain_ms=time_ms(lambda: entry_blend.blend_backward_plain(
             *bwd_args, plain.tfinal, plain.tin, g_cpre, g_tfinal)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
         pixel_entry_evals=evals, entries_needed=n_slots,
         max_n_last=int(n_last.max()), bytes=nbytes))
     sizes = dict(n_gaussians=n, entries=live, stream_slots=es.rank.numel(),
@@ -869,8 +944,9 @@ def phase_trainer_scene(dev):
 
 
 def visited_chunk_work(counts, deltas, tin, chunk, eps):
-    """(live slots in the visited chunks, visited chunks) of the window
-    blend: what the serial loops of kernels D and E evaluate per pixel."""
+    """(live slots in the visited chunks per tile [T], visited chunks) of
+    the window blend: what the serial loops of kernels D and E evaluate
+    per pixel."""
     import torch
     n_chunks = tin.shape[1]
     visited = tin.amax(2) >= eps                               # [T, nc]
@@ -878,7 +954,22 @@ def visited_chunk_work(counts, deltas, tin, chunk, eps):
     lo = torch.clamp(deltas.long()[:, None] - c * chunk, 0, chunk)
     hi = torch.clamp((deltas + counts).long()[:, None] - c * chunk, 0, chunk)
     slots = torch.where(visited, hi - lo, torch.zeros_like(lo))
-    return int(slots.sum()), int(visited.sum())
+    return slots.sum(1), int(visited.sum())
+
+
+def tile_spread(tile_slots, n_sm: int) -> dict:
+    """The spread of a one-block-per-tile kernel's work: per-tile slots
+    (mean, max) and per-SM sums with block b placed on SM b mod n_sm."""
+    import torch
+    per_sm = torch.zeros(n_sm, dtype=torch.int64, device=tile_slots.device)
+    per_sm.index_add_(0, torch.arange(tile_slots.numel(),
+                                      device=tile_slots.device) % n_sm,
+                      tile_slots)
+    return dict(tiles=tile_slots.numel(),
+                tile_mean=float(tile_slots.float().mean()),
+                tile_max=int(tile_slots.max()), sms=n_sm,
+                sm_mean=float(per_sm.float().mean()),
+                busiest_sm=int(per_sm.max()))
 
 
 def trainer_view0_prep(bundle, settings, dev):
@@ -929,7 +1020,7 @@ def phase_window_parity(bundle, k_probe: int, dev):
     import numpy as np
     import torch
     from das3r_tpu_torch.models import render as render_mod
-    from das3r_tpu_torch.ops.splat import binning, window_blend
+    from das3r_tpu_torch.ops.splat import binning, kernels, window_blend
 
     t0 = time.perf_counter()
     s = dataclasses.replace(bundle.settings, max_per_tile=k_probe,
@@ -968,15 +1059,23 @@ def phase_window_parity(bundle, k_probe: int, dev):
         keys_read = int((torch.cumsum(cover, 0)[:-1] > 0).sum())
         nbytes = keys_read * 8 + start.numel() * 8 + got.numel() * 4
         b_ms, b_by = bound(nbytes)
+
+        def library_f():
+            return torch.clamp_max(keys[win_idx] & mask, n - 1).to(
+                torch.int32)
         results.append(dict(
             name="extract_windows", route="cuda",
             source="das3r_tpu_torch/csrc/extract_windows.cu",
             replaces="das3r_tpu/ops/splat/binning.py:96",
             max_abs_err=0.0,
             ms=time_ms(lambda: binning.extract_windows(*args_f)),
+            device_ms=device_ms(lambda: binning.extract_windows(*args_f),
+                                "extract_windows_kernel"),
             plain_ms=time_ms(lambda: binning.extract_windows_plain(*args_f)),
-            library_ms=time_ms(lambda: torch.clamp_max(
-                keys[win_idx] & mask, n - 1).to(torch.int32)),
+            library_ms=time_ms(library_f),
+            library_device_ms=device_ms(library_f),
+            library_call="torch.clamp_max(keys[start + arange(K)] & mask, "
+                         "n - 1).to(torch.int32)",
             bound_ms=b_ms, bound_by=b_by, slots=got.numel(),
             keys_read=keys_read, bytes=nbytes))
 
@@ -995,9 +1094,13 @@ def phase_window_parity(bundle, k_probe: int, dev):
                                       plain)}
         if not max(errs.values()) <= BLEND_TOL:
             raise AssertionError(f"window_blend_forward err {errs}")
+        if not torch.equal(out[2] == 0, plain[2] == 0):
+            raise AssertionError("window_blend_forward: tin's zero pattern "
+                                 "differs from the plain version's")
         chunk = window_blend._pick_chunk(attrs.shape[2])
-        slots, n_vis = visited_chunk_work(bins.count, bins.delta, plain[2],
-                                          chunk, s.transmittance_eps)
+        tile_slots, n_vis = visited_chunk_work(
+            bins.count, bins.delta, plain[2], chunk, s.transmittance_eps)
+        slots = int(tile_slots.sum())
         P = s.tile * s.tile
         evals = slots * P
         in_bytes = (n_vis * chunk * 9 * 4
@@ -1006,19 +1109,27 @@ def phase_window_parity(bundle, k_probe: int, dev):
         ops_s = max(evals * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S,
                     evals / SFU_OPS_PER_S)
         b_ms, b_by = bound(in_bytes + out_bytes, ops_s)
+        spread = tile_spread(
+            tile_slots, torch.cuda.get_device_properties(0).multi_processor_count)
         results.append(dict(
             name="window_blend_forward", route="cuda",
             source="das3r_tpu_torch/csrc/window_blend_forward.cu",
             replaces="das3r_tpu/ops/splat/pallas_blend.py:145",
             max_abs_err=max(errs.values()), err_by_output=errs,
             ms=time_ms(lambda: window_blend.window_forward(*args_d)),
+            device_ms=device_ms(lambda: window_blend.window_forward(*args_d),
+                                "window_forward_kernel"),
             plain_ms=time_ms(lambda: window_blend.window_forward_plain(
                 *args_d)),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=b_by,
             k_width=int(attrs.shape[2]), chunk=chunk, visited_chunks=n_vis,
             visited_live_slots=slots, pixel_slot_evals=evals,
             live_slots=int(bins.count.sum()),
             tile_overflow=int((full_count > k_probe).sum()),
+            tile_spread=spread, blocks_per_sm=blocks_per_sm(
+                kernels.library("window_blend_forward"),
+                "window_blend_forward", chunk),
             bytes=in_bytes + out_bytes))
 
         # --- kernel E: window_blend_backward --------------------------
@@ -1026,13 +1137,25 @@ def phase_window_parity(bundle, k_probe: int, dev):
             size=tuple(out[0].shape)).astype(np.float32), device=dev)
         args_e = (attrs, bins.count, bins.delta, bg, g, plain[1], plain[2],
                   s)
-        got = window_blend.window_backward(*args_e)
         want = window_blend.window_backward_plain(*args_e)
+
+        def rel_err(got):
+            return {k: float((got[:, c] - want[:, c]).abs().max()
+                             / want[:, c].abs().max())
+                    for k, c in GROUPS.items()}
+        # on the plain forward's tfinal and tin, then on kernel D's: the
+        # pair of kernels against the pair of plain versions
+        got = window_blend.window_backward(*args_e)
+        got_on_d = window_blend.window_backward(*args_e[:5], out[1], out[2],
+                                                s)
         torch.cuda.synchronize()
-        rel = {k: float((got[:, c] - want[:, c]).abs().max()
-                        / want[:, c].abs().max()) for k, c in GROUPS.items()}
-        if not (torch.isfinite(got).all() and max(rel.values()) <= GRAD_TOL):
-            raise AssertionError(f"window_blend_backward err / max|g| {rel}")
+        rel, rel_on_d = rel_err(got), rel_err(got_on_d)
+        for what, g_attrs, r in (("plain D's", got, rel),
+                                 ("kernel D's", got_on_d, rel_on_d)):
+            if not (torch.isfinite(g_attrs).all()
+                    and max(r.values()) <= GRAD_TOL):
+                raise AssertionError(f"window_blend_backward on {what} "
+                                     f"outputs: err / max|g| {r}")
         in_bytes += (g.numel() + plain[1].numel() + plain[2].numel()) * 4
         out_bytes = got.numel() * 4
         ops_s = max(evals * WINDOW_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S,
@@ -1043,11 +1166,14 @@ def phase_window_parity(bundle, k_probe: int, dev):
             source="das3r_tpu_torch/csrc/window_blend_backward.cu",
             replaces="das3r_tpu/ops/splat/pallas_blend.py:220",
             max_abs_err=float((got - want).abs().max()),
-            err_over_max_g=rel,
+            err_over_max_g=rel, err_over_max_g_on_kernel_d=rel_on_d,
             ms=time_ms(lambda: window_blend.window_backward(*args_e)),
+            device_ms=device_ms(lambda: window_blend.window_backward(
+                *args_e), "window_backward_kernel"),
             plain_ms=time_ms(lambda: window_blend.window_backward_plain(
                 *args_e)),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=b_by,
             pixel_slot_evals=evals, bytes=in_bytes + out_bytes))
 
         # --- the window image against the entry-stream image ----------
@@ -1065,7 +1191,9 @@ def phase_window_parity(bundle, k_probe: int, dev):
     emit("window_parity", seconds=time.perf_counter() - t0, k_width=k_probe,
          max_tile_entries=int(full_count.max()), tile_overflow=overflow,
          image_err_vs_entry_stream=img_err,
-         kernels=summary(results))
+         d_tile_spread=results[1]["tile_spread"],
+         d_blocks_per_sm=results[1]["blocks_per_sm"],
+         e_err_over_max_g_on_kernel_d=rel_on_d, kernels=summary(results))
     return results
 
 

@@ -33,19 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_step.cuh"
+
 namespace blend_bwd {
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;     // threads per block, one per pixel
-constexpr int kAttr = 9;  // mean_x mean_y conic_xx conic_xy conic_yy r g b op
-// An entry's attributes in shared memory: kAttrPad floats, 16-byte aligned,
-// [mx my cxx cxy | cyy op - - | r g b -], so that the forward's
-// expressions read two broadcast float4 loads and the colours a third.
-constexpr int kAttrPad = 12;
-// the slot of attribute a (table column order) in that layout
-__host__ __device__ constexpr int attr_slot(int a) {
-  return a < 5 ? a : (a == 8 ? 5 : a + 3);
-}
+// An entry's attributes in shared memory: blend_step.cuh's padded layout.
+using blend_step::attr_slot;
+using blend_step::kAttr;
+using blend_step::kAttrPad;
 constexpr int kNB = 16;                 // entries per batch
 static_assert(kNB == 16 || kNB == 32, "a batch holds 16 or 32 entries");
 constexpr int kGroups = kPix / kNB;     // pass B: pixel groups per entry

@@ -33,10 +33,10 @@
 //      fixed order and write g_attrs[t, :, slot].
 // The replays store T_before instead of restoring it by division (kernel
 // C's choice): the division compounds one rounding per contributing entry.
-// They use the forward's expressions in its order, both built with
-// --fmad=false, so the backward sees exactly the forward's transmittances
-// and contribute decisions. The sweep's division is the fast one
-// (__fdividef): it feeds dalpha only.
+// They run the forward kernel's own step (blend_step.cuh, one definition
+// for both, built with --fmad=false), so the backward sees exactly the
+// forward's transmittances and contribute decisions. The sweep's division
+// is the fast one (__fdividef): it feeds dalpha only.
 //
 // Bound on the H100: operations. Each pixel-slot evaluation of a visited
 // chunk costs two replays (~15 FP32 operations and one exp each), the
@@ -51,10 +51,14 @@
 // 0.76 and 0.53 ms of 3.19 on the trainer scene of chip_smoke.py (H100
 // 80GB HBM3, 700 W), the price of not storing the chunk's transmittances.
 #include "blend_backward_common.cuh"
+#include "blend_step.cuh"
 
 namespace {
 
 using namespace blend_bwd;
+using blend_step::advance;
+using blend_step::Eval;
+using blend_step::evaluate;
 
 constexpr int kMaxChunk = 128;
 constexpr int kMaxSub = kMaxChunk / kNB;  // boundaries per chunk, at most
@@ -124,22 +128,15 @@ window_backward_kernel(const float* __restrict__ attrs,
     const int lo = max(del - c * chunk, 0);
     const int hi = min(del + cnt - c * chunk, chunk);
 
-    // The forward's step at slot j: T_before -> T after, in its expressions
-    // and order; returns alpha_raw, or -1 where the slot is not valid.
+    // The forward's step at slot j (blend_step.cuh): T_before -> T after;
+    // returns alpha_raw, or -1 where the slot is not valid.
     auto step = [&](int j, float& T) -> float {
-      const float4 a0 = *(const float4*)(s_attr + j * kAttrPad);
-      const float2 a1 = *(const float2*)(s_attr + j * kAttrPad + 4);
-      const float dx = a0.x - px;
-      const float dy = a0.y - py;
-      const float power =
-          -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
-      const float alpha_raw = a1.y * expf(power);
-      const float alpha = fminf(alpha_clip, alpha_raw);
-      const bool valid = j >= lo && j < hi && power <= 0.0f &&
-                         alpha >= alpha_floor;
-      const float t_next = T * (1.0f - alpha);
-      T = valid ? t_next : T;
-      return valid ? alpha_raw : -1.0f;
+      const float* row = s_attr + j * kAttrPad;
+      const Eval e = evaluate(*(const float4*)row, *(const float2*)(row + 4),
+                              px, py, j >= lo && j < hi, alpha_clip,
+                              alpha_floor);
+      T = advance(T, e);
+      return e.valid ? e.alpha_raw : -1.0f;
     };
 
     // the boundary Ts; the last sub-batch's slots end no boundary

@@ -57,6 +57,8 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# each kernel's ``<name>_launch``, resolved and typed once
+_launchers: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -112,6 +114,7 @@ def library(name: str) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[kname] = lib
+            _launchers[kname] = fn
     return _loaded[name]
 
 
@@ -119,8 +122,9 @@ def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current CUDA stream; raise on a
     launch error (a refused launch never runs and synchronize() would
     not report it)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(name), f"{name}_launch")(*args, stream)
+    if name not in _launchers:
+        library(name)
+    err = _launchers[name](*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 

@@ -152,10 +152,12 @@ def window_forward(attrs: torch.Tensor, counts: torch.Tensor,
     Replaces the TPU kernel ``das3r_tpu/ops/splat/pallas_blend.py::
     _forward_kernel``. On the H100 it is bound by operations (~15 FP32
     operations and one exp per pixel-slot evaluation), so the kernel
-    (csrc/window_blend_forward.cu) stages each chunk's attributes in shared
-    memory, runs the serial per-pixel loop and leaves a tile once every
-    pixel is saturated. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    (csrc/window_blend_forward.cu) cuts the instructions around each
+    evaluation: two pixels per thread, each chunk's attributes copied into
+    padded shared-memory rows while the previous chunk is blended, and a
+    branch-free step (csrc/blend_step.cuh, the one kernel E replays); it
+    leaves a tile once every pixel is saturated. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
     if attrs.device.type == "cpu":
         return window_forward_plain(attrs, counts, deltas, bg, settings)
     _check_window(attrs, counts, deltas, bg, settings)

@@ -302,9 +302,11 @@ def window_case(k_width, mode, seed=3):
                torch.tensor([0.2, 0.5, 0.9])]
 
 
-# K = 16384 is the trainer's regrow ceiling (max_per_tile)
-WINDOW_CASES = [(64, "sparse"), (256, "sparse"), (256, "saturate"),
-                (384, "saturate"), (16384, "faint")]
+# K = 16384 is the trainer's regrow ceiling (max_per_tile); at K = 2, 8 and
+# 32 the chunk is K, shorter than kernel D's unroll by 4 or a few of it
+WINDOW_CASES = [(2, "sparse"), (8, "sparse"), (32, "sparse"), (64, "sparse"),
+                (256, "sparse"), (256, "saturate"), (384, "saturate"),
+                (16384, "faint")]
 
 
 @pytest.mark.parametrize("k_width,mode", WINDOW_CASES)
@@ -385,6 +387,97 @@ def test_window_backward_kernel_is_deterministic(cuda, k_width, mode):
     torch.cuda.synchronize()
     assert first.abs().max() > 0
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("k_width,mode", [(8, "sparse"), (256, "saturate"),
+                                          (16384, "faint")])
+def test_window_forward_kernel_is_deterministic(cuda, k_width, mode):
+    """Kernel D: two launches on the same inputs agree bit for bit."""
+    s, args = window_case(k_width, mode)
+    dev = [a.to(cuda) for a in args]
+    first = window_blend.window_forward(*dev, s)
+    second = window_blend.window_forward(*dev, s)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("colors", "tfinal", "tin")):
+        assert torch.equal(a, b), name
+
+
+def assert_window_grads_close(got, want):
+    for name, rows in GROUPS.items():
+        ref = float(want[:, rows].abs().max())
+        assert ref > 0, name
+        torch.testing.assert_close(got[:, rows], want[:, rows],
+                                   atol=GRAD_TOL * ref, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("k_width,mode", WINDOW_CASES)
+def test_window_kernel_pair_matches_plain_pair(cuda, k_width, mode):
+    """Kernel E on kernel D's tfinal and tin against the plain backward on
+    the plain forward's: the window path's two kernels as training runs
+    them, per attribute group within 2e-5 x max|g|."""
+    s, bargs = window_backward_inputs(k_width, mode)
+    want = window_blend.window_backward_plain(*bargs, s)
+    dev = [a.to(cuda) for a in bargs[:5]]
+    _, tfinal, tin = window_blend.window_forward(*dev[:4], s)
+    got = window_blend.window_backward(*dev, tfinal, tin, s)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert_window_grads_close(got, want)
+
+
+def saturating_window_case():
+    """K = 384 windows (three chunks of 128) where tile 3 saturates on the
+    last slot of its first chunk and tile 4 on slot 65 of its second (mid
+    group of kernel D's 4-slot unroll), every pixel on that slot: slots
+    before it are one broad splat over the tile, of an opacity that leaves
+    T near 2e-4, and the slot itself is opaque. Both tiles hold 384 live
+    slots, so chunks follow the exit. Returns (settings, window_forward
+    arguments, {tile: index of its saturating slot})."""
+    s, args = window_case(384, "sparse", seed=5)
+    attrs, counts, deltas, _ = args
+    saturate_at = {3: 127, 4: 128 + 65}
+    for t, m in saturate_at.items():
+        counts[t], deltas[t] = 384, 0
+        cx = (t % s.tiles_x) * 16 + 7.5
+        cy = (t // s.tiles_x) * 16 + 7.5
+        a = 1.0 - 2e-4 ** (1.0 / m)
+        attrs[t, :, :m + 1] = torch.tensor(
+            [cx, cy, 1e-6, 0.0, 1e-6, 0.3, 0.6, 0.9, a])[:, None]
+        attrs[t, 8, m] = 0.99
+    return s, args, saturate_at
+
+
+def test_window_kernels_at_a_saturating_slot(cuda):
+    """Kernel D where every pixel of a tile saturates on the last slot of a
+    chunk, and on a slot in the middle of an unrolled group: its outputs
+    within the forward bar of the plain version's, tin's zero pattern the
+    plain version's (the chunk after the exit unvisited), then kernel E on
+    D's outputs against the plain pair."""
+    s, args, saturate_at = saturating_window_case()
+    want = window_blend.window_forward_plain(*args, s)
+    dev = [a.to(cuda) for a in args]
+    got = window_blend.window_forward(*dev, s)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("colors", "tfinal", "tin")):
+        torch.testing.assert_close(g.cpu(), w, atol=BLEND_TOL, rtol=0,
+                                   msg=name)
+    tin = got[2].cpu()
+    assert torch.equal(tin == 0, want[2] == 0)
+    for t, m in saturate_at.items():
+        c_exit = m // 128 + 1       # the first chunk the tile never visits
+        assert (tin[t, c_exit:] == 0).all() and (tin[t, :c_exit] > 0).all()
+        # every pixel's last contribution is slot m - 1, which leaves T
+        # near 2e-4: slot m takes it below eps
+        tf = want[1][t]
+        assert ((tf >= s.transmittance_eps) & (tf < 1e-3)).all()
+    g = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(s.n_tiles, 256, 3)).astype(np.float32))
+    want_g = window_blend.window_backward_plain(*args, g, want[1], want[2],
+                                                s)
+    got_g = window_blend.window_backward(*dev, g.to(cuda), got[1], got[2], s)
+    torch.cuda.synchronize()
+    assert_window_grads_close(got_g.cpu(), want_g)
 
 
 def test_window_blend_autograd_launches_both_kernels(cuda):

@@ -73,6 +73,38 @@ def test_editing_a_source_renames_only_its_library(csrc_copy, name):
         assert (kernels._lib_path(k) != before[k]) == (k == name), k
 
 
+WINDOW_KERNELS = ["window_blend_forward", "window_blend_backward"]
+STEP_HEADER = "blend_step.cuh"
+
+
+def code(source: str) -> str:
+    """``source`` without its comments."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", (kernels.CSRC / source)
+                  .read_text(), flags=re.S)
+
+
+@pytest.mark.parametrize("name", WINDOW_KERNELS)
+def test_window_kernels_run_the_one_forward_step(name):
+    """Kernels D and E include the header that defines the forward's step
+    and evaluate no exp of their own, so that E's replay makes D's
+    contribute decisions."""
+    assert f'#include "{STEP_HEADER}"' in code(f"{name}.cu")
+    assert "expf" not in code(f"{name}.cu")
+    assert "evaluate(" in code(f"{name}.cu")
+
+
+def test_forward_step_is_built_without_fast_math():
+    """The step's exp is the IEEE expf, and nothing lets the compiler fuse
+    or approximate: D's source, the header and the flags."""
+    step = code(STEP_HEADER)
+    assert re.search(r"\bexpf\(", step)
+    for source in (STEP_HEADER, "window_blend_forward.cu"):
+        for word in ("__expf", "fast-math", "fast_math", "__fmaf", "fmaf("):
+            assert word not in code(source), (source, word)
+    assert "--fmad=false" in kernels.NVCC_FLAGS
+    assert not any("fast" in f for f in kernels.NVCC_FLAGS)
+
+
 def test_library_name_is_stable_and_carries_the_flags(csrc_copy,
                                                       monkeypatch):
     name = KERNELS[0]

@@ -155,11 +155,14 @@ def jax_windows(js, ts, scene):
          use_dma_windows=False),
     dict(n=600, seed=6, image_height=32, image_width=64, max_per_tile=256),
     dict(saturate=True, image_height=48, image_width=48, max_per_tile=256),
+    dict(n=900, seed=7, image_height=48, image_width=64, max_per_tile=8),
+    dict(n=900, seed=8, image_height=48, image_width=64, max_per_tile=32),
 ])
 def test_plain_window_blend_matches_jax_kernels(case):
     """Forward (colours, tfinal, tin) and the ``jax.vjp`` gradients of the
     windows and bg, for K = 64, 128 (+128 aligned, delta > 0) and 256,
-    under tile overflow and on the dense near-opaque scene."""
+    under tile overflow and on the dense near-opaque scene; and for K = 8
+    and 32, where the chunk is K itself (JAX takes both widths)."""
     case = dict(case)
     if case.pop("saturate", False):
         scene, seed = saturating_scene(), 17
