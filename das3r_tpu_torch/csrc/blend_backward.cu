@@ -16,9 +16,9 @@
 // (blend_backward_common.cuh). Pass A, thread = pixel: the pixel sees entry
 // j only if j < n_last[p]; every valid entry it sees contributed in the
 // forward (the entry that crossed eps and all later ones lie at or past
-// n_last), because power, alpha and 1 - alpha are computed by the same
-// expressions as in blend_forward.cu, both built with --fmad=false. Per
-// seen, valid entry, from T = T_final backwards:
+// n_last), because both kernels evaluate an entry by blend_step.cuh's
+// evaluate, built with --fmad=false. Per seen, valid entry, from T =
+// T_final backwards:
 //     r = 1 / (1 - alpha);  T_before = T r;  w = alpha * T_before
 //     dalpha = (gC . c) T_before - S r;  S += (gC . c) w
 //     (dalpha = 0 where alpha_raw > alpha_clip);  d_power = alpha_raw dalpha
@@ -45,10 +45,13 @@
 // products), and the barriers of each batch. Known weakness: one block per
 // tile balances poorly when a few tiles hold most entries.
 #include "blend_backward_common.cuh"
+#include "blend_step.cuh"
 
 namespace {
 
 using namespace blend_bwd;
+using blend_step::Eval;
+using blend_step::evaluate;
 
 // d_power and w planes (the partials go over them), colour cotangents,
 // then the batch's attributes [kNB][kAttrPad] and ranks [kNB]
@@ -148,25 +151,21 @@ blend_backward_kernel(const float* __restrict__ table,
       const float4 a1 = *(const float4*)(s_attr + j * kAttrPad + 4);
       const float4 a2 = *(const float4*)(s_attr + j * kAttrPad + 8);
       if (b + j < my_last) {
-        // The same expressions as blend_forward.cu, in the same order.
-        const float dx = a0.x - px;
-        const float dy = a0.y - py;
-        const float power =
-            -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
-        const float alpha_raw = a1.y * expf(power);
-        const float alpha = fminf(alpha_clip, alpha_raw);
-        if (power <= 0.0f && alpha >= alpha_floor) {
+        // The forward's step (blend_step.cuh), the one kernel B ran.
+        const Eval e = evaluate(a0, make_float2(a1.x, a1.y), px, py, true,
+                                alpha_clip, alpha_floor);
+        if (e.valid) {
           any = true;
           // one_m >= 1 - alpha_clip: the fast reciprocal is within 2 ulp
-          const float inv = __fdividef(1.0f, 1.0f - alpha);
+          const float inv = __fdividef(1.0f, 1.0f - e.alpha);
           const float t_before = T * inv;
-          w = alpha * t_before;
+          w = e.alpha * t_before;
           const float gdot = g0 * a2.x + g1 * a2.y + g2 * a2.z;
           float d_alpha = gdot * t_before - S * inv;
           S += gdot * w;
           T = t_before;
-          if (alpha_raw > alpha_clip) d_alpha = 0.0f;
-          d_power = alpha_raw * d_alpha;
+          if (e.alpha_raw > alpha_clip) d_alpha = 0.0f;
+          d_power = e.alpha_raw * d_alpha;
         }
       }
       s_dp[j * kRow + p] = d_power;

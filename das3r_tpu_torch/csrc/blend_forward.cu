@@ -7,42 +7,82 @@
 //
 // The TPU kernel walks one sequential grid over the stream and carries the
 // current tile's pixel state across grid steps. Hopper blocks run in no
-// order, so here each block owns one tile: 256 threads, one per pixel of a
-// 16x16 tile, walk the tile's slot range [astart[t], astart[t] + count[t]).
-// Batches of 256 entries are loaded cooperatively (rank, then the table row
-// into shared memory) and every thread runs the CUDA rasterizer's serial
-// loop over the batch:
-//     skip if power > 0 or alpha < 1/255;
-//     test_T = T * (1 - alpha); if test_T < eps the pixel is done;
-//     else C += alpha * T * c, T = test_T.
-// The block leaves when every pixel is done (__syncthreads_count), the
-// exact saturation skip that the TPU kernel's sticky running product gives.
-// An empty tile writes (cpre = 0, tfinal = 1) itself.
+// order, so here each block owns one tile and walks its slot range
+// [astart[t], astart[t] + count[t]) in batches of kNB entries. Per pixel,
+// over the entries in list order, blend_step.cuh's step (the one that the
+// window forward kernel D runs and the backward kernels C and E replay):
+//     valid = power <= 0 and alpha >= alpha_floor;
+//     t_after = valid ? T_run * (1 - alpha) : T_run;
+//     if valid and t_after >= eps:
+//         C += alpha * T_run * c, T_out = t_after, n_last = position + 1;
+//     T_run = t_after   (sticky: committed even below eps).
+// (C, T_out) is the CUDA rasterizer's (C, T), which skips invalid entries
+// and stops a pixel once T (1 - alpha) < eps: blend_step.cuh gives the
+// argument. The block leaves once no pixel's T_run is >= eps, which is the
+// rasterizer's "every pixel is done" and the exact saturation skip that the
+// TPU kernel's sticky running product gives. An empty tile writes (cpre =
+// 0, tfinal = 1, n_last = 0) itself.
 //
 // For the backward (csrc/blend_backward.cu) the kernel can also write
 // n_last[t, p]: the count of list positions up to and including the
 // pixel's last contributing entry. The backward walks each pixel's list
 // from there and restores T by division, so nothing per entry is saved.
-// The serving path passes a null pointer and writes nothing more.
+// n_last is a template parameter: the serving path passes a null pointer
+// and its instantiation has neither the select nor the store.
 //
 // Bound on the H100: operations, not bytes. Each pixel-entry evaluation is
-// ~15 FP32 operations and one exp; the exp goes to the special-function
-// units (16 per SM per clock, ~4.2e12/s on an H100 SXM at 1.98 GHz), about
-// as tight as the FP32 pipes (~67 TFLOP/s). The design keeps the entry
-// attributes in shared memory (each entry read once per block from device
-// memory) and stops at saturation, so the work is only the evaluations
-// the serial loop needs. Known weakness, left for a later change: one block
-// per tile gives poor load balance when a few tiles hold most entries.
+// ~15 FP32 operations and one exp; a tile that never saturates evaluates
+// every one of its entries at all 256 pixels. The design is kernel D's
+// (window_blend_forward.cu) but for its staging: it cuts the instructions
+// issued around each evaluation.
+//   - 128 threads, two pixels each, one above the other (p and p + 128,
+//     8 rows apart): each shared load and the x half of the power serve
+//     two evaluations, and each thread carries two independent T chains;
+//   - an entry's attributes are staged as blend_step.cuh's 48-byte padded
+//     rows and read by three broadcast loads (float4, float2, float4);
+//   - the step has no branch, and the entry loop is unrolled by 4, so that
+//     consecutive entries' exps are in flight together; only the T
+//     multiply is serial. After each group of 4 a warp whose pixels are
+//     all below eps leaves the batch: on a scene whose tiles saturate,
+//     the warps that are done give their issue slots to those that are
+//     not, as the rasterizer's per-pixel exit did;
+//   - a batch is 128 entries, one table row per thread, staged by rank
+//     (rank, then the row's nine floats) before a barrier; the barrier
+//     that starts the next batch is the exit test.
+// On the trainer scene of chip_smoke.py (576 tiles that never saturate,
+// 463.5M evaluations; H100 80GB HBM3, 700 W), timed in turns against a
+// one-pixel, scalar-load, branching kernel of 1.02 ms: the layout, the
+// branch-free step and two pixels per thread took off 9, 13 and 5
+// points. The random scene's tiles saturate after at most 294 entries,
+// and there the branch-free step alone lost to the per-pixel exit it
+// replaced; the warp's leave won that back and more, at no cost on the
+// trainer scene, and 128-entry batches waste less of the last batch
+// than 256. D's double buffer (cp.async, the ranks held one batch ahead)
+// gained nothing here: it ran level on the trainer scene and 4% slower on
+// the random one, so it is not kept.
+// The table is [N + 1, 9] f32 in depth order. Pads in a tile's 128-aligned
+// range hold rank N, the zero row; no rank past count[t] is read, and no
+// entry past it blended.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_step.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per block, one per pixel
-constexpr int kAttr = 9;  // mean_x mean_y conic_xx conic_xy conic_yy r g b op
+using blend_step::attr_slot;
+using blend_step::blend_slot;
+using blend_step::evaluate;
+using blend_step::kAttr;
+using blend_step::kAttrPad;
 
-__global__ void __launch_bounds__(kPix)
+constexpr int kTile = 16;
+constexpr int kPix = kTile * kTile;  // pixels of a tile
+constexpr int kThreads = kPix / 2;   // two pixels each: p and p + kThreads
+constexpr int kNB = kThreads;        // entries per batch: one per thread
+
+template <bool kLast>
+__global__ void __launch_bounds__(kThreads)
 blend_forward_kernel(const float* __restrict__ table,
                      const int32_t* __restrict__ rank,
                      const int32_t* __restrict__ astart,
@@ -50,56 +90,75 @@ blend_forward_kernel(const float* __restrict__ table,
                      float alpha_clip, float alpha_floor, float eps,
                      float* __restrict__ cpre, float* __restrict__ tfinal,
                      int32_t* __restrict__ n_last) {
-  __shared__ float s_attr[kAttr][kPix];
+  __shared__ __align__(16) float s_attr[kNB * kAttrPad];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const float px = (float)((t % tiles_x) * kTile + p % kTile);
-  const float py = (float)((t / tiles_x) * kTile + p / kTile);
-  const int64_t beg = astart[t];
+  const int q = threadIdx.x;  // pixels q and q + kThreads of the tile
+  const float px = (float)((t % tiles_x) * kTile + q % kTile);
+  const float py0 = (float)((t / tiles_x) * kTile + q / kTile);
+  const float py1 = py0 + (float)(kThreads / kTile);
+  const int32_t* rank_t = rank + astart[t];
   const int cnt = count[t];
 
-  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-  int last = 0;
-  bool done = false;
-  for (int b = 0; b < cnt; b += kPix) {
+  float cr0 = 0.0f, cg0 = 0.0f, cb0 = 0.0f, cr1 = 0.0f, cg1 = 0.0f,
+        cb1 = 0.0f;
+  float to0 = 1.0f, tr0 = 1.0f, to1 = 1.0f, tr1 = 1.0f;
+  int last0 = 0, last1 = 0;
+  for (int b = 0; b < cnt; b += kNB) {
     // Also the barrier that keeps the previous batch's readers ahead of
     // the writes below.
-    if (__syncthreads_count(done) == kPix) break;
-    if (b + p < cnt) {
-      const float* row = table + (int64_t)rank[beg + b + p] * kAttr;
+    if (!__syncthreads_or(tr0 >= eps || tr1 >= eps)) break;
+    if (b + q < cnt) {
+      const float* row = table + (int64_t)rank_t[b + q] * kAttr;
 #pragma unroll
-      for (int a = 0; a < kAttr; ++a) s_attr[a][p] = row[a];
+      for (int a = 0; a < kAttr; ++a)
+        s_attr[q * kAttrPad + attr_slot(a)] = row[a];
     }
     __syncthreads();
-    const int nb = min(kPix, cnt - b);
-    for (int j = 0; j < nb && !done; ++j) {
-      const float dx = s_attr[0][j] - px;
-      const float dy = s_attr[1][j] - py;
-      const float power = -0.5f * (s_attr[2][j] * dx * dx +
-                                   s_attr[4][j] * dy * dy) -
-                          s_attr[3][j] * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(alpha_clip, s_attr[8][j] * expf(power));
-      if (alpha < alpha_floor) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < eps) {
-        done = true;
+    // entry j of the batch into both pixels
+    auto step = [&](int j) {
+      const float* row = s_attr + j * kAttrPad;
+      const float4 a0 = *(const float4*)row;
+      const float2 a1 = *(const float2*)(row + 4);
+      const float4 col = *(const float4*)(row + 8);
+      const bool c0 =
+          blend_slot(evaluate(a0, a1, px, py0, true, alpha_clip, alpha_floor),
+                     col, eps, tr0, to0, cr0, cg0, cb0);
+      const bool c1 =
+          blend_slot(evaluate(a0, a1, px, py1, true, alpha_clip, alpha_floor),
+                     col, eps, tr1, to1, cr1, cg1, cb1);
+      if (kLast) {
+        last0 = c0 ? b + j + 1 : last0;
+        last1 = c1 ? b + j + 1 : last1;
+      }
+    };
+    // Groups of 4 entries; a warp none of whose pixels is still >= eps
+    // leaves the batch, whose later steps would change nothing of it.
+    const int nb = min(kNB, cnt - b);
+    int j = 0;
+    for (; j + 4 <= nb; j += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) step(j + k);
+      if (!__any_sync(0xffffffffu, tr0 >= eps || tr1 >= eps)) {
+        j = nb;
         break;
       }
-      const float w = alpha * T;
-      c0 += w * s_attr[5][j];
-      c1 += w * s_attr[6][j];
-      c2 += w * s_attr[7][j];
-      T = test_T;
-      last = b + j + 1;
     }
+    for (; j < nb; ++j) step(j);
   }
-  float* out = cpre + (int64_t)t * 3 * kPix;
-  out[p] = c0;
-  out[kPix + p] = c1;
-  out[2 * kPix + p] = c2;
-  tfinal[(int64_t)t * kPix + p] = T;
-  if (n_last != nullptr) n_last[(int64_t)t * kPix + p] = last;
+  const int64_t pix = (int64_t)t * kPix + q;
+  float* out = cpre + (int64_t)t * 3 * kPix + q;
+  out[0] = cr0;
+  out[kPix] = cg0;
+  out[2 * kPix] = cb0;
+  out[kThreads] = cr1;
+  out[kPix + kThreads] = cg1;
+  out[2 * kPix + kThreads] = cb1;
+  tfinal[pix] = to0;
+  tfinal[pix + kThreads] = to1;
+  if (kLast) {
+    n_last[pix] = last0;
+    n_last[pix + kThreads] = last1;
+  }
 }
 
 }  // namespace
@@ -110,9 +169,24 @@ extern "C" int blend_forward_launch(const void* table, const void* rank,
                                     float alpha_floor, float eps, void* cpre,
                                     void* tfinal, void* n_last,
                                     void* stream) {
-  blend_forward_kernel<<<n_tiles, kPix, 0, (cudaStream_t)stream>>>(
+  if (n_tiles == 0) return 0;
+  auto kernel = n_last != nullptr ? blend_forward_kernel<true>
+                                  : blend_forward_kernel<false>;
+  kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
       (const int32_t*)count, tiles_x, alpha_clip, alpha_floor, eps,
       (float*)cpre, (float*)tfinal, (int32_t*)n_last);
   return (int)cudaGetLastError();
+}
+
+// Blocks resident per SM of the instantiation with n_last (with_n_last
+// != 0, training) or without it (serving).
+extern "C" int blend_forward_blocks_per_sm(int with_n_last) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, with_n_last ? blend_forward_kernel<true>
+                          : blend_forward_kernel<false>,
+          kThreads, 0) != cudaSuccess)
+    return -1;
+  return n;
 }

@@ -54,9 +54,8 @@
 
 namespace {
 
-using blend_step::advance;
 using blend_step::attr_slot;
-using blend_step::Eval;
+using blend_step::blend_slot;
 using blend_step::evaluate;
 using blend_step::kAttr;
 using blend_step::kAttrPad;
@@ -87,21 +86,6 @@ __device__ __forceinline__ void stage_chunk(float* buf, const float* a_t,
                    : "memory");
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// One slot into one pixel's state, by selects.
-__device__ __forceinline__ void blend_slot(const Eval& e, float4 col,
-                                           float eps, float& t_run,
-                                           float& t_out, float& cr,
-                                           float& cg, float& cb) {
-  const float t_after = advance(t_run, e);
-  const bool contrib = e.valid && t_after >= eps;
-  const float w = e.alpha * t_run;
-  cr = contrib ? cr + w * col.x : cr;
-  cg = contrib ? cg + w * col.y : cg;
-  cb = contrib ? cb + w * col.z : cb;
-  t_out = contrib ? t_after : t_out;
-  t_run = t_after;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,7 +1,8 @@
 """Tile-to-image assembly (``das3r_tpu/ops/splat/blend.py::assemble_image``).
 
-The vectorised blend of the JAX package's XLA backend is not ported: the
-port's only raster path is the entry stream (ROADMAP.md).
+The port has two raster paths, the entry stream (``entry_blend``) and the
+[T, K] window path (``window_blend``), and both end here. The vectorised
+blend of the JAX package's XLA backend is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -258,10 +258,15 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
     _forward_kernel`` together with the ``table[rank]`` gather before it.
     On the H100 it is bound by operations (~15 FP32 operations and one exp
-    per pixel-entry evaluation), so the kernel (csrc/blend_forward.cu) keeps
-    each batch of entries in shared memory, runs the serial per-pixel loop
-    and leaves a tile as soon as every pixel is saturated. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel.
+    per pixel-entry evaluation), so the kernel (csrc/blend_forward.cu) cuts
+    the instructions around each evaluation as kernel D does: two pixels
+    per thread, each batch's table rows copied by rank into padded
+    shared-memory rows, and the branch-free step that kernels C, D and E
+    share (csrc/blend_step.cuh); a warp leaves a batch once its pixels are
+    saturated, and the block leaves the tile once all are. Without
+    ``for_backward`` it launches the instantiation that neither tracks nor
+    writes ``n_last``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel.
     """
     if table.device.type == "cpu":
         out = blend_forward_plain(table, rank, astart, count, settings)

@@ -13,8 +13,8 @@ as follows:
 * ``full_sort_below``: with ``max_total_entries`` set, duplication tables
   larger than this are compacted to the cap before the sort (dropping the
   farthest entries), as in the JAX package.
-* ``tile`` must be 16 on the GPU: the blend kernels run one thread per
-  pixel of a 16x16 tile.
+* ``tile`` must be 16 on the GPU: every blend kernel maps a 16x16 tile
+  onto one block.
 * ``entry_stream`` alone picks the raster branch: True the exact entry
   stream, False the [T, K] window path, whose windows hold
   ``max_per_tile`` slots (a multiple of 128 or a divisor of 128) and are

@@ -83,7 +83,19 @@ def random_stream(rng, settings, counts, n_rows, saturate):
             torch.as_tensor(counts.astype(np.int32))]
 
 
-@pytest.mark.parametrize("variant", ["sparse", "saturate"])
+# "sparse": random splats; "saturate": broad near-opaque splats that end
+# tiles early; "gap": tile 5 holds a run of 100 entries of a row far off
+# the image, so whole backward batches are seen by no pixel; "shared_row":
+# the first 64 entries of every tile are one broad faint splat's row, so the
+# backward's table-row atomics collide within and across blocks;
+# "boundaries": random splats on lists of a batch's length and one either
+# side of it, for batches of 64, 128 and 256 entries, and of two and three
+# 256-entry batches (kernel B holds the ranks of the batch after next).
+BLEND_CASES = ["sparse", "saturate", "gap", "shared_row", "boundaries"]
+FORWARD_CASES = ["sparse", "saturate", "boundaries"]
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
 def test_blend_forward_kernel_matches_plain(cuda, variant):
     """See ``blend_case``; with ``saturate`` tiles end early."""
     s, args = blend_case(variant)
@@ -101,24 +113,19 @@ def test_blend_forward_kernel_matches_plain(cuda, variant):
     assert (cpre[0] == 0).all() and (tfinal[0] == 1).all()   # empty tile
 
 
-# "sparse": random splats; "saturate": broad near-opaque splats that end
-# tiles early; "gap": tile 5 holds a run of 100 entries of a row far off
-# the image, so whole backward batches are seen by no pixel; "shared_row":
-# the first 64 entries of every tile are one broad faint splat's row, so the
-# backward's table-row atomics collide within and across blocks.
-BLEND_CASES = ["sparse", "saturate", "gap", "shared_row"]
-
-
 def blend_case(variant):
     """The blend kernels' fixture: tile lists of 0, 1, 255, 256, 257 and
     1500 entries (batch boundaries of the forward's 256-entry and the
     backward's 16- or 32-entry batches, and lengths that are multiples of
     neither), partial edge tiles, and the ``BLEND_CASES`` variant."""
     saturate = variant == "saturate"
-    rng = np.random.default_rng(7 + saturate)
+    rng = np.random.default_rng(7 + saturate + 2 * (variant == "boundaries"))
     s = RasterSettings(image_height=72, image_width=88)
     counts = rng.integers(0, 700, s.n_tiles)
     counts[:6] = [0, 1, 255, 256, 257, 1500]
+    if variant == "boundaries":
+        counts[:20] = [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 383,
+                       384, 385, 511, 512, 513, 767, 768, 1500]
     args = random_stream(rng, s, counts, 3000, saturate)
     table, rank, astart, count = args
     if variant == "gap":
@@ -132,7 +139,7 @@ def blend_case(variant):
     return s, args
 
 
-@pytest.mark.parametrize("variant", ["sparse", "saturate"])
+@pytest.mark.parametrize("variant", FORWARD_CASES)
 def test_blend_forward_n_last_matches_plain(cuda, variant):
     """The kernel's n_last (one past each pixel's last contributing entry)
     against the plain forward's. A pixel may differ where the serial and
@@ -149,6 +156,56 @@ def test_blend_forward_n_last_matches_plain(cuda, variant):
     assert (n_last.cpu() <= args[3][:, None]).all()
     assert (n_last[0] == 0).all() and int(n_last.max()) > 0
     torch.testing.assert_close(cpre.cpu(), plain.cpre, atol=BLEND_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_blend_forward_kernel_is_deterministic(cuda, variant):
+    """Kernel B: two launches on the same inputs agree bit for bit, with
+    and without n_last."""
+    s, args = blend_case(variant)
+    dev = [a.to(cuda) for a in args]
+    for for_backward in (False, True):
+        first = entry_blend.blend_forward(*dev, s, for_backward=for_backward)
+        second = entry_blend.blend_forward(*dev, s, for_backward=for_backward)
+        torch.cuda.synchronize()
+        for a, b, name in zip(first, second, ("cpre", "tfinal", "n_last")):
+            assert torch.equal(a, b), (name, for_backward)
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_blend_forward_n_last_leaves_outputs_bitwise(cuda, variant):
+    """Kernel B's instantiation that writes n_last blends as the serving
+    one does: cpre and tfinal equal bit for bit."""
+    s, args = blend_case(variant)
+    dev = [a.to(cuda) for a in args]
+    cpre, tfinal = entry_blend.blend_forward(*dev, s)
+    cpre_n, tfinal_n, _ = entry_blend.blend_forward(*dev, s,
+                                                    for_backward=True)
+    torch.cuda.synchronize()
+    assert torch.equal(cpre, cpre_n) and torch.equal(tfinal, tfinal_n)
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_blend_forward_kernel_equals_window_kernel(cuda, variant):
+    """Kernels B and D run blend_step.cuh's step on the same lists in the
+    same order: B on the case's entry stream and D on the same lists laid
+    out as [T, 9, K] windows (delta 0, K = 1536, no background) give
+    bitwise the same colour and final transmittance."""
+    s, args = blend_case(variant)
+    table, rank, astart, count = args
+    k_width = 1536
+    assert int(count.max()) <= k_width
+    attrs = torch.zeros(s.n_tiles, entry_blend.N_ATTR, k_width)
+    for t, (a, c) in enumerate(zip(astart.tolist(), count.tolist())):
+        attrs[t, :, :c] = table[rank[a:a + c].long()].T
+    dev = [a.to(cuda) for a in args]
+    cpre, tfinal = entry_blend.blend_forward(*dev, s)
+    colors, tfinal_d, _ = window_blend.window_forward(
+        attrs.to(cuda), count.to(cuda),
+        torch.zeros_like(count).to(cuda), torch.zeros(3, device=cuda), s)
+    torch.cuda.synchronize()
+    assert torch.equal(cpre, colors.transpose(1, 2))
+    assert torch.equal(tfinal[:, 0], tfinal_d)
 
 
 @pytest.mark.parametrize("variant", BLEND_CASES)

@@ -73,7 +73,11 @@ def test_editing_a_source_renames_only_its_library(csrc_copy, name):
         assert (kernels._lib_path(k) != before[k]) == (k == name), k
 
 
-WINDOW_KERNELS = ["window_blend_forward", "window_blend_backward"]
+# the four blend kernels: D and E on the window path, B and C on the entry
+# stream
+BLEND_KERNELS = ["window_blend_forward", "window_blend_backward",
+                 "blend_forward", "blend_backward"]
+FORWARD_KERNELS = ["window_blend_forward", "blend_forward"]
 STEP_HEADER = "blend_step.cuh"
 
 
@@ -83,11 +87,11 @@ def code(source: str) -> str:
                   .read_text(), flags=re.S)
 
 
-@pytest.mark.parametrize("name", WINDOW_KERNELS)
-def test_window_kernels_run_the_one_forward_step(name):
-    """Kernels D and E include the header that defines the forward's step
-    and evaluate no exp of their own, so that E's replay makes D's
-    contribute decisions."""
+@pytest.mark.parametrize("name", BLEND_KERNELS)
+def test_blend_kernels_run_the_one_forward_step(name):
+    """Kernels B, C, D and E include the header that defines the forward's
+    step and evaluate no exp of their own, so that the backward kernels'
+    replays make their forward kernels' contribute decisions."""
     assert f'#include "{STEP_HEADER}"' in code(f"{name}.cu")
     assert "expf" not in code(f"{name}.cu")
     assert "evaluate(" in code(f"{name}.cu")
@@ -95,10 +99,11 @@ def test_window_kernels_run_the_one_forward_step(name):
 
 def test_forward_step_is_built_without_fast_math():
     """The step's exp is the IEEE expf, and nothing lets the compiler fuse
-    or approximate: D's source, the header and the flags."""
+    or approximate: the forward kernels' sources (B, D), the header and the
+    flags."""
     step = code(STEP_HEADER)
     assert re.search(r"\bexpf\(", step)
-    for source in (STEP_HEADER, "window_blend_forward.cu"):
+    for source in (STEP_HEADER, *(f"{k}.cu" for k in FORWARD_KERNELS)):
         for word in ("__expf", "fast-math", "fast_math", "__fmaf", "fmaf("):
             assert word not in code(source), (source, word)
     assert "--fmad=false" in kernels.NVCC_FLAGS
