@@ -25,7 +25,9 @@ failure:
    each: ``ms``, CUDA events around one call of the wrapper, its host
    work included; ``device_ms``, the kernel alone as ``torch.profiler``
    records it (``library_device_ms``: every kernel of the library call).
-   Both are medians of 10 calls.
+   Both are medians of 10 calls; ``device_ms_calls`` and
+   ``device_ms_kernels`` say over how many whole calls and with how many
+   device records each (the same for ``library_device_ms``).
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
    ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
@@ -137,9 +139,12 @@ GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
 # a kernel's numbers on a phase's line and beside the other scene's
 SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "device_ms",
+                "device_ms_calls", "device_ms_kernels", "device_ms_sessions",
                 "ms_with_n_last", "plain_ms", "library_ms",
-                "library_device_ms", "bound_ms", "bound_by", "n_last_agrees",
-                "tile_spread", "blocks_per_sm")
+                "library_device_ms", "library_device_ms_calls",
+                "library_device_ms_kernels", "library_device_ms_sessions",
+                "bound_ms", "bound_by", "n_last_agrees", "tile_spread",
+                "blocks_per_sm")
 
 
 def emit(phase: str, **fields) -> None:
@@ -164,59 +169,70 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 10,
-              max_sessions: int = 20, min_calls: int = 3) -> float:
-    """Median over ``reps`` calls of ``fn`` (after one warm-up) of the
-    device time ``torch.profiler`` records: the CUDA kernel whose name
-    contains ``kernel`` alone, or, with None, the kernels, copies and
-    fills that the call's PyTorch operators launch.
+# the host calls that put work on the card, each one device record
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
-    Profiler sessions of ``reps`` calls each run until ``reps`` whole
-    calls were seen: on the H100 machine, late in a long process, a
-    session kept the device records of only its last few calls (an early
-    one kept all). A call is whole when its record is there (``kernel``)
-    or when its range holds the most common count of kernels of the
-    ranges that hold any (one range that held more kernels than the
-    others left only itself whole: 1 call in 20 sessions). After
-    ``max_sessions`` the median is over the whole calls seen, if there
-    are ``min_calls`` of them."""
+
+def device_ms(fn, kernel: str | None = None, key: str = "device_ms",
+              reps: int = 10, max_sessions: int = 20) -> dict:
+    """``{key: ms, key_calls: n, key_kernels: k, key_sessions: s}``: the
+    median over ``reps`` whole calls of ``fn`` (after one warm-up) of the
+    device time ``torch.profiler`` records (the CUDA kernel whose name
+    contains ``kernel`` alone, or, with None, every kernel, copy and fill
+    that the call launches), the calls it is over, the device records in
+    each and the profiler sessions it took.
+
+    Sessions of ``reps`` calls each run until ``reps`` whole calls were
+    seen: on the H100 machine, late in a long process, a session kept the
+    device records of only its last few calls. A call is whole when its
+    record is there (``kernel``), or when its range holds as many device
+    records as the host made launches in it, and that is the most
+    launches of any range of ``fn`` (the range's own annotation on the
+    device's timeline is not a launch and is left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    RANGE = "device_ms.call"
 
-    def n_kernels(e):
-        return len(e.kernels) + sum(n_kernels(c) for c in e.cpu_children)
+    def tally(e):
+        """(host launches, device records, their device us) within e"""
+        recs = [k for k in e.kernels if k.name != RANGE]
+        out = [int(e.name.startswith(LAUNCH_CALLS)), len(recs),
+               sum(k.duration for k in recs)]
+        for c in e.cpu_children:
+            out = [a + b for a, b in zip(out, tally(c))]
+        return out
 
     fn()
     torch.cuda.synchronize()
-    calls: list[tuple[int, float]] = []   # (kernels seen, device us)
-    for _ in range(max_sessions):
+    ranges: list[tuple[int, int, float]] = []
+    for session in range(1, max_sessions + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                with record_function("device_ms.call"):
+                with record_function(RANGE):
                     fn()
             torch.cuda.synchronize()
         events = prof.events()
         if kernel is not None:
-            calls += [(1, e.device_time_total) for e in events
-                      if e.device_type == DeviceType.CUDA
-                      and kernel in e.name]
+            ranges += [(1, 1, e.device_time_total) for e in events
+                       if e.device_type == DeviceType.CUDA
+                       and kernel in e.name]
         else:
-            calls += [(n_kernels(e), e.device_time_total) for e in events
-                      if e.device_type == DeviceType.CPU
-                      and e.name == "device_ms.call"]
-        counts = collections.Counter(n for n, _ in calls if n > 0)
-        full = max(counts, key=lambda n: (counts[n], n), default=0)
-        times = [t for n, t in calls if n == full > 0]
+            ranges += [tuple(tally(e)) for e in events
+                       if e.device_type == DeviceType.CPU and e.name == RANGE]
+        full = max((n for n, _, _ in ranges), default=0)
+        times = [t for n, k, t in ranges if n == k == full > 0]
         if len(times) >= reps:
-            return statistics.median(times[:reps]) / 1e3
-    if len(times) >= min_calls:
-        return statistics.median(times) / 1e3
+            return {key: statistics.median(times[:reps]) / 1e3,
+                    f"{key}_calls": reps, f"{key}_kernels": full,
+                    f"{key}_sessions": session}
     seen = sorted({(e.name[:60], str(e.device_type)) for e in events})
-    raise AssertionError(f"{max_sessions} profiler sessions saw {len(times)} "
-                         f"whole calls of {kernel or 'the call'} (kernels "
-                         f"per call: {dict(counts)}): {seen[:40]}")
+    raise AssertionError(
+        f"{max_sessions} profiler sessions saw {len(times)} whole calls of "
+        f"{kernel or 'the call'} ((launches, records) per range: "
+        f"{dict(collections.Counter((n, k) for n, k, _ in ranges))}): "
+        f"{seen[:40]}")
 
 
 def bound(nbytes: float, ops_seconds: float = 0.0) -> tuple[float, str]:
@@ -430,10 +446,11 @@ def entry_kernel_parity(prep, settings, dev):
         source="das3r_tpu_torch/csrc/extract_chunks.cu",
         replaces="das3r_tpu/ops/splat/binning.py:563",
         max_abs_err=0.0, ms=time_ms(kernel),
-        device_ms=device_ms(kernel, "extract_chunks_kernel"),
+        **device_ms(kernel, "extract_chunks_kernel"),
         plain_ms=time_ms(lambda: binning.extract_chunks_plain(
             keys, src0, nlive, ks.nbits, n)),
-        library_ms=time_ms(library), library_device_ms=device_ms(library),
+        library_ms=time_ms(library),
+        **device_ms(library, key="library_device_ms"),
         library_call="torch.where(live, torch.clamp_max(keys[idx] & mask, "
                      "n - 1), n).to(torch.int32)",
         bound_ms=b_ms, bound_by=b_by,
@@ -497,7 +514,7 @@ def entry_kernel_parity(prep, settings, dev):
     turns = [time_ms(lambda b=b: fwd(b)) for b in (False, True, True, False)]
     results[-1].update(
         ms=(turns[0] + turns[3]) / 2, ms_with_n_last=(turns[1] + turns[2]) / 2,
-        device_ms=device_ms(lambda: fwd(False), "blend_forward_kernel"),
+        **device_ms(lambda: fwd(False), "blend_forward_kernel"),
         ms_turns_off_on_on_off=turns, max_abs_err_with_n_last=err_n,
         n_last_agrees=float((n_last == plain.n_last).float().mean()))
 
@@ -538,7 +555,7 @@ def entry_kernel_parity(prep, settings, dev):
         err_over_max_g=rel,
         ms=time_ms(lambda: entry_blend.blend_backward(
             *bwd_args, tfinal_n, n_last, g_cpre, g_tfinal)),
-        device_ms=device_ms(lambda: entry_blend.blend_backward(
+        **device_ms(lambda: entry_blend.blend_backward(
             *bwd_args, tfinal_n, n_last, g_cpre, g_tfinal),
             "blend_backward_kernel"),
         plain_ms=time_ms(lambda: entry_blend.blend_backward_plain(
@@ -1104,11 +1121,11 @@ def phase_window_parity(bundle, k_probe: int, dev):
             replaces="das3r_tpu/ops/splat/binning.py:96",
             max_abs_err=0.0,
             ms=time_ms(lambda: binning.extract_windows(*args_f)),
-            device_ms=device_ms(lambda: binning.extract_windows(*args_f),
-                                "extract_windows_kernel"),
+            **device_ms(lambda: binning.extract_windows(*args_f),
+                        "extract_windows_kernel"),
             plain_ms=time_ms(lambda: binning.extract_windows_plain(*args_f)),
             library_ms=time_ms(library_f),
-            library_device_ms=device_ms(library_f),
+            **device_ms(library_f, key="library_device_ms"),
             library_call="torch.clamp_max(keys[start + arange(K)] & mask, "
                          "n - 1).to(torch.int32)",
             bound_ms=b_ms, bound_by=b_by, slots=got.numel(),
@@ -1152,8 +1169,8 @@ def phase_window_parity(bundle, k_probe: int, dev):
             replaces="das3r_tpu/ops/splat/pallas_blend.py:145",
             max_abs_err=max(errs.values()), err_by_output=errs,
             ms=time_ms(lambda: window_blend.window_forward(*args_d)),
-            device_ms=device_ms(lambda: window_blend.window_forward(*args_d),
-                                "window_forward_kernel"),
+            **device_ms(lambda: window_blend.window_forward(*args_d),
+                        "window_forward_kernel"),
             plain_ms=time_ms(lambda: window_blend.window_forward_plain(
                 *args_d)),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
@@ -1203,8 +1220,8 @@ def phase_window_parity(bundle, k_probe: int, dev):
             max_abs_err=float((got - want).abs().max()),
             err_over_max_g=rel, err_over_max_g_on_kernel_d=rel_on_d,
             ms=time_ms(lambda: window_blend.window_backward(*args_e)),
-            device_ms=device_ms(lambda: window_blend.window_backward(
-                *args_e), "window_backward_kernel"),
+            **device_ms(lambda: window_blend.window_backward(*args_e),
+                        "window_backward_kernel"),
             plain_ms=time_ms(lambda: window_blend.window_backward_plain(
                 *args_e)),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,

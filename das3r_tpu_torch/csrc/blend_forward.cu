@@ -42,10 +42,8 @@
 //     rows and read by three broadcast loads (float4, float2, float4);
 //   - the step has no branch, and the entry loop is unrolled by 4, so that
 //     consecutive entries' exps are in flight together; only the T
-//     multiply is serial. After each group of 4 a warp whose pixels are
-//     all below eps leaves the batch: on a scene whose tiles saturate,
-//     the warps that are done give their issue slots to those that are
-//     not, as the rasterizer's per-pixel exit did;
+//     multiply is serial. The serving instantiation evaluates a group's
+//     four entries before it blends them;
 //   - a batch is 128 entries, one table row per thread, staged by rank
 //     (rank, then the row's nine floats) before a barrier; the barrier
 //     that starts the next batch is the exit test.
@@ -53,13 +51,17 @@
 // 463.5M evaluations; H100 80GB HBM3, 700 W), timed in turns against a
 // one-pixel, scalar-load, branching kernel of 1.02 ms: the layout, the
 // branch-free step and two pixels per thread took off 9, 13 and 5
-// points. The random scene's tiles saturate after at most 294 entries,
-// and there the branch-free step alone lost to the per-pixel exit it
-// replaced; the warp's leave won that back and more, at no cost on the
-// trainer scene, and 128-entry batches waste less of the last batch
-// than 256. D's double buffer (cp.async, the ranks held one batch ahead)
-// gained nothing here: it ran level on the trainer scene and 4% slower on
-// the random one, so it is not kept.
+// points. Without n_last the compiler issued each entry's exps only after
+// the previous entry's blend; evaluating the group first took 4.5% off
+// serving (training's schedule already overlaps them). The random scene's
+// tiles saturate after at most 294 entries, and 128-entry batches waste
+// less of the last batch there than 256. Two designs were measured and
+// left out: D's double buffer (cp.async, the ranks held one batch ahead)
+// ran level on the trainer scene and 4% slower on the random one; a
+// warp-uniform leave of the batch once a warp's pixels are all below eps
+// (__any_sync after each group) took 20-23% off the random scene but
+// cost 0.6-1.4% on the trainer scene in training and 3.3-3.6% in
+// serving, and most launches run on the trainer scene.
 // The table is [N + 1, 9] f32 in depth order. Pads in a tile's 128-aligned
 // range hold rank N, the zero row; no rank past count[t] is read, and no
 // entry past it blended.
@@ -72,6 +74,7 @@ namespace {
 
 using blend_step::attr_slot;
 using blend_step::blend_slot;
+using blend_step::Eval;
 using blend_step::evaluate;
 using blend_step::kAttr;
 using blend_step::kAttrPad;
@@ -131,16 +134,34 @@ blend_forward_kernel(const float* __restrict__ table,
         last1 = c1 ? b + j + 1 : last1;
       }
     };
-    // Groups of 4 entries; a warp none of whose pixels is still >= eps
-    // leaves the batch, whose later steps would change nothing of it.
+    // Entries j .. j + 3 in serving: every evaluation first, then the
+    // blends in list order (the same operations on the same values).
+    auto group = [&](int j) {
+      Eval e0[4], e1[4];
+      float4 col[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float* row = s_attr + (j + k) * kAttrPad;
+        const float4 a0 = *(const float4*)row;
+        const float2 a1 = *(const float2*)(row + 4);
+        col[k] = *(const float4*)(row + 8);
+        e0[k] = evaluate(a0, a1, px, py0, true, alpha_clip, alpha_floor);
+        e1[k] = evaluate(a0, a1, px, py1, true, alpha_clip, alpha_floor);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        blend_slot(e0[k], col[k], eps, tr0, to0, cr0, cg0, cb0);
+        blend_slot(e1[k], col[k], eps, tr1, to1, cr1, cg1, cb1);
+      }
+    };
     const int nb = min(kNB, cnt - b);
     int j = 0;
     for (; j + 4 <= nb; j += 4) {
+      if (kLast) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) step(j + k);
-      if (!__any_sync(0xffffffffu, tr0 >= eps || tr1 >= eps)) {
-        j = nb;
-        break;
+        for (int k = 0; k < 4; ++k) step(j + k);
+      } else {
+        group(j);
       }
     }
     for (; j < nb; ++j) step(j);
@@ -169,7 +190,6 @@ extern "C" int blend_forward_launch(const void* table, const void* rank,
                                     float alpha_floor, float eps, void* cpre,
                                     void* tfinal, void* n_last,
                                     void* stream) {
-  if (n_tiles == 0) return 0;
   auto kernel = n_last != nullptr ? blend_forward_kernel<true>
                                   : blend_forward_kernel<false>;
   kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(

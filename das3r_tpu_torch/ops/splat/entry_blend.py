@@ -262,11 +262,12 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     the instructions around each evaluation as kernel D does: two pixels
     per thread, each batch's table rows copied by rank into padded
     shared-memory rows, and the branch-free step that kernels C, D and E
-    share (csrc/blend_step.cuh); a warp leaves a batch once its pixels are
-    saturated, and the block leaves the tile once all are. Without
-    ``for_backward`` it launches the instantiation that neither tracks nor
-    writes ``n_last``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel.
+    share (csrc/blend_step.cuh); the block leaves the tile once its pixels
+    are saturated. Without ``for_backward`` it launches the instantiation
+    that neither tracks nor writes ``n_last`` and evaluates four entries
+    before it blends them.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel.
     """
     if table.device.type == "cpu":
         out = blend_forward_plain(table, rank, astart, count, settings)

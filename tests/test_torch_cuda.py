@@ -89,8 +89,8 @@ def random_stream(rng, settings, counts, n_rows, saturate):
 # the first 64 entries of every tile are one broad faint splat's row, so the
 # backward's table-row atomics collide within and across blocks;
 # "boundaries": random splats on lists of a batch's length and one either
-# side of it, for batches of 64, 128 and 256 entries, and of two and three
-# 256-entry batches (kernel B holds the ranks of the batch after next).
+# side of it, for batches of 64, 128 and 256 entries, and of two to six
+# 128-entry batches (kernel B stages each 128-entry batch in place).
 BLEND_CASES = ["sparse", "saturate", "gap", "shared_row", "boundaries"]
 FORWARD_CASES = ["sparse", "saturate", "boundaries"]
 
@@ -115,7 +115,7 @@ def test_blend_forward_kernel_matches_plain(cuda, variant):
 
 def blend_case(variant):
     """The blend kernels' fixture: tile lists of 0, 1, 255, 256, 257 and
-    1500 entries (batch boundaries of the forward's 256-entry and the
+    1500 entries (batch boundaries of the forward's 128-entry and the
     backward's 16- or 32-entry batches, and lengths that are multiples of
     neither), partial edge tiles, and the ``BLEND_CASES`` variant."""
     saturate = variant == "saturate"
