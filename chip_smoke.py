@@ -73,7 +73,21 @@ failure:
    final transmittance (bg = 0; the count of values that differ and the
    largest difference, within 2e-4) and the window-path image against
    the entry-stream image within 2e-4.
-13. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
+13. split_table: view 0 of that bundle and view 0 of the random scene,
+   each binned three ways on both raster branches: the full-width
+   ``[N, D]`` table; the split ``[N, L] + [H_cap, D - L]`` table at the
+   shape ``models/autosize.auto_split_table`` picks from the scene's probe
+   (the random scene probed as the JAX viewer probes, without conf; where
+   no split is picked, L = 4 and ``auto_heavy_cap``, said so on the line);
+   that split with half the heavy rows as its cap (rounded down to 1024,
+   at least 1024). Gates: the split's keys and both branches' streams
+   bitwise the full-width ones, its ``heavy_overflow`` 0; the starved
+   cap's ``heavy_overflow`` the JAX formula from ``ntt`` on the host, and
+   its keys a subset of the full-width keys, short only of over-cap heavy
+   rows' cells at index >= L. Prints each way's binning time (``ms`` and
+   ``device_ms`` of the whole ``bin_entry_stream`` or ``bin_gaussians``
+   call, medians of 10), the split shape and the slot counts.
+14. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
    own copy of the bundle, 44 iterations each (4 epochs), densify with
    clone and split at 10, 20 and 30, an opacity reset at 30, a test
    report, a save and a checkpoint at 44: once on the entry stream, once
@@ -81,10 +95,21 @@ failure:
    parameters, that the loss of iterations 12-22 is below that of 1-11,
    the written PLY, pose npy, npz and test log, the npz read back equal,
    and which kernels each run launched.
+15. gui: ``das3r_tpu_torch.gui.ViewerScene.from_model_dir`` on the entry
+   run's model (iteration 44) at the viewer's 480x320 on ``cuda``, and
+   ``gui.server.make_server`` on 127.0.0.1 in a thread, answering real
+   HTTP requests: ``/``, ``/state``, ``/render`` in modes rgb, confidence
+   and no_soft at 8 yaws each, ``/traj``. Checks each PNG's shape, that it
+   is not blank and that the modes differ, one launch of A and one of B
+   per render, no dropped entry, and one panel per mode within 2e-4 of
+   the same render through the plain versions of A and B; prints the
+   request times (host clock), the ``render_panel`` times (CUDA events)
+   and the PLY load.
 
 Then the ``kernels`` line (A, B, C at the trainer scene with their
 random-scene numbers under ``random_scene``; D, E, F at the trainer
-scene), the ``nvidia-smi`` line, and last the device line. Everything it
+scene; launches by path, the viewer's included), the ``nvidia-smi``
+line, and last the device line. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -175,20 +200,24 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
 def device_ms(fn, kernel: str | None = None, key: str = "device_ms",
               reps: int = 10, max_sessions: int = 20) -> dict:
-    """``{key: ms, key_calls: n, key_kernels: k, key_sessions: s}``: the
-    median over ``reps`` whole calls of ``fn`` (after one warm-up) of the
-    device time ``torch.profiler`` records (the CUDA kernel whose name
-    contains ``kernel`` alone, or, with None, every kernel, copy and fill
-    that the call launches), the calls it is over, the device records in
-    each and the profiler sessions it took.
+    """``{key: ms, key_calls: n, key_kernels: k, key_launches: l,
+    key_sessions: s}``: the median over ``reps`` whole calls of ``fn``
+    (after one warm-up) of the device time ``torch.profiler`` records (the
+    CUDA kernel whose name contains ``kernel`` alone, or, with None, every
+    kernel, copy and fill that the call launches), the calls it is over,
+    the device records and host launches in each and the profiler
+    sessions it took.
 
     Sessions of ``reps`` calls each run until ``reps`` whole calls were
     seen: on the H100 machine, late in a long process, a session kept the
-    device records of only its last few calls. A call is whole when its
-    record is there (``kernel``), or when its range holds as many device
-    records as the host made launches in it, and that is the most
-    launches of any range of ``fn`` (the range's own annotation on the
-    device's timeline is not a launch and is left out)."""
+    device records of only its last few calls, and a range once held one
+    record more than its launches. A call is whole when its record is
+    there (``kernel``), or when its range holds the most host launches of
+    any range of ``fn`` and as many device records as launches, or one
+    fewer where more of those ranges hold one fewer (a launch that makes
+    no record in every call: the binning calls, 215 launches and 214
+    records; the range's own annotation on the device's timeline is not a
+    launch and is left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -222,11 +251,13 @@ def device_ms(fn, kernel: str | None = None, key: str = "device_ms",
             ranges += [tuple(tally(e)) for e in events
                        if e.device_type == DeviceType.CPU and e.name == RANGE]
         full = max((n for n, _, _ in ranges), default=0)
-        times = [t for n, k, t in ranges if n == k == full > 0]
+        counts = collections.Counter(k for n, k, _ in ranges if n == full)
+        recs = max((full, full - 1), key=lambda k: counts[k])
+        times = [t for n, k, t in ranges if n == full > 0 and k == recs]
         if len(times) >= reps:
             return {key: statistics.median(times[:reps]) / 1e3,
-                    f"{key}_calls": reps, f"{key}_kernels": full,
-                    f"{key}_sessions": session}
+                    f"{key}_calls": reps, f"{key}_kernels": recs,
+                    f"{key}_launches": full, f"{key}_sessions": session}
     seen = sorted({(e.name[:60], str(e.device_type)) for e in events})
     raise AssertionError(
         f"{max_sessions} profiler sessions saw {len(times)} whole calls of "
@@ -991,7 +1022,7 @@ def phase_trainer_scene(dev):
                        heavy_rows_cap=st.heavy_rows_cap),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          launches=launches)
-    return bundle, k_probe, launches
+    return bundle, k_probe, launches, stats
 
 
 def visited_chunk_work(counts, deltas, tin, chunk, eps):
@@ -1268,6 +1299,286 @@ def phase_window_parity(bundle, k_probe: int, dev):
     return results
 
 
+def split_drops_ok(prep, s, full_keys, keys, nbits) -> int:
+    """Raise unless ``keys`` (a split table's, heavy cap ``s``) are a subset
+    of ``full_keys`` (the full-width table's) and every key they lack is a
+    rect cell at index >= L of a heavy row past the cap (rows in depth
+    order). Returns the count of keys they lack."""
+    import torch
+    L, d_cap = s.light_dup_width, s.max_tiles_per_gaussian
+    if not bool(torch.isin(keys, full_keys).all()):
+        raise AssertionError("the split table holds a key the full-width "
+                             "table does not")
+    lost = full_keys[~torch.isin(full_keys, keys)]
+    alive = prep.binnable
+    order = torch.argsort(torch.where(alive, prep.depth, torch.full_like(
+        prep.depth, float("inf"))), stable=True)
+    ntt = torch.where(alive, torch.clamp_max(prep.n_tiles_touched, d_cap),
+                      torch.zeros_like(prep.n_tiles_touched))[order]
+    heavy = ntt > L
+    h_pos = torch.cumsum(heavy, 0) - heavy.long()
+    over = heavy & (h_pos >= s.heavy_rows_cap)
+    rank = lost & ((1 << nbits) - 1)
+    g = order[rank]
+    tile = lost >> nbits
+    width = torch.clamp_min(prep.rect_max[g, 0] - prep.rect_min[g, 0], 1)
+    cell = ((tile // s.tiles_x - prep.rect_min[g, 1]) * width
+            + tile % s.tiles_x - prep.rect_min[g, 0])
+    if not bool((over[rank] & (cell >= L)).all()):
+        raise AssertionError("the split table lost a key that is not a "
+                             "heavy row's tail past the cap")
+    return lost.numel()
+
+
+def host_heavy_overflow(prep, s) -> int:
+    """The JAX package's ``heavy_overflow`` formula on the host, from
+    ``ntt`` in depth order: the rect cells past L of the heavy rows beyond
+    the first ``heavy_rows_cap``."""
+    import numpy as np
+    alive = prep.binnable.cpu().numpy()
+    depth = np.where(alive, prep.depth.cpu().numpy(), np.inf)
+    order = np.argsort(depth, kind="stable")
+    ntt = np.where(alive, np.minimum(prep.n_tiles_touched.cpu().numpy(),
+                                     s.max_tiles_per_gaussian), 0)[order]
+    heavy = ntt > s.light_dup_width
+    h_pos = np.cumsum(heavy) - heavy
+    over = heavy & (h_pos >= s.heavy_rows_cap)
+    return int((ntt - s.light_dup_width)[over].sum())
+
+
+def split_table_view(name, prep, settings, stats, dev):
+    """Bin one view three ways on both raster branches (the full-width
+    table; the split ``auto_split_table`` picks from ``stats``; that split
+    with half the heavy rows as its cap), gate and time each."""
+    import dataclasses
+
+    import torch
+    from das3r_tpu_torch.models import autosize
+    from das3r_tpu_torch.ops.splat import binning
+
+    n = prep.depth.shape[0]
+    d_cap = settings.max_tiles_per_gaussian
+    pick = autosize.auto_split_table(stats, n, d_cap)
+    picked = pick["heavy_rows_cap"] is not None
+    light = pick.get("light_dup_width", 4)
+    ntt = torch.clamp_max(prep.n_tiles_touched, d_cap)
+    heavy_rows = int(((ntt > light) & prep.binnable).sum())
+    cap = pick["heavy_rows_cap"] if picked else autosize.auto_heavy_cap(
+        heavy_rows)
+    starved_cap = max(1024, heavy_rows // 2 // 1024 * 1024)
+    ways = {"full": dataclasses.replace(settings, heavy_rows_cap=None),
+            "split": dataclasses.replace(settings, light_dup_width=light,
+                                         heavy_rows_cap=cap),
+            "starved": dataclasses.replace(settings, light_dup_width=light,
+                                           heavy_rows_cap=starved_cap)}
+    keys = {}
+    for way, st in ways.items():
+        ks = binning._sorted_key_stream(prep, st)
+        keys[way] = ks.sorted_packed
+        if way == "split" and (int(ks.heavy_overflow) != 0 or not
+                               torch.equal(ks.sorted_packed, keys["full"])):
+            raise AssertionError(f"{name}: the split table's keys differ "
+                                 "from the full-width table's")
+    nbits = binning.rank_bits(n)
+    want = host_heavy_overflow(prep, ways["starved"])
+    lost = split_drops_ok(prep, ways["starved"], keys["full"],
+                          keys["starved"], nbits)
+    fields = {"entry": ("rank", "chunk_tile", "count", "astart"),
+              "window": ("rank", "delta", "count", "full_count")}
+    binners = {"entry": binning.bin_entry_stream,
+               "window": binning.bin_gaussians}
+    branches = {}
+    for branch, fn in binners.items():
+        out = {}
+        for way, st in ways.items():
+            st = dataclasses.replace(st, entry_stream=branch == "entry")
+            res = fn(prep, st)
+            if way == "split":
+                for f in fields[branch]:
+                    if not torch.equal(getattr(res, f),
+                                       getattr(out["full"]["bins"], f)):
+                        raise AssertionError(f"{name}, {branch}: the split "
+                                             f"table's {f} differs")
+            if int(res.heavy_overflow) != (want if way == "starved" else 0):
+                raise AssertionError(
+                    f"{name}, {branch}, {way}: heavy_overflow "
+                    f"{int(res.heavy_overflow)}, the formula gives {want}")
+            out[way] = dict(bins=res, ms=time_ms(lambda: fn(prep, st)),
+                            **device_ms(lambda: fn(prep, st)))
+        branches[branch] = {way: {k: v for k, v in o.items() if k != "bins"}
+                            for way, o in out.items()}
+        torch.cuda.empty_cache()
+    return dict(
+        scene=name, n_gaussians=n, dup_cap=d_cap,
+        split_picked_by_probe=picked, light_dup_width=light,
+        heavy_rows_cap=cap, starved_heavy_rows_cap=starved_cap,
+        heavy_rows=heavy_rows, probe_dup_hist=list(stats.dup_hist),
+        slots_full=n * d_cap, slots_split=n * light + cap * (d_cap - light),
+        slots_starved=n * light + starved_cap * (d_cap - light),
+        live_keys=keys["full"].numel(), starved_heavy_overflow=want,
+        starved_keys_lost=lost, branches=branches)
+
+
+def phase_split_table(bundle, trainer_stats, model: Path, data,
+                      serve_settings, dev):
+    """The split-width duplication table against the full-width table on
+    view 0 of the trainer scene and of the random serving scene."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.eval.render_tool import load_gaussians_ply
+    from das3r_tpu_torch.models import autosize
+    from das3r_tpu_torch.utils.quat import w2c_to_pose
+
+    t0 = time.perf_counter()
+    views = []
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, bundle.settings, dev)
+        views.append(split_table_view("trainer view 0", prep,
+                                      bundle.settings, trainer_stats, dev))
+        del prep
+        # the serving scene's probe, as the JAX viewer probes: no conf
+        params, meta, _ = load_gaussians_ply(
+            str(model / "point_cloud" / "iteration_1" / "point_cloud.ply"),
+            SH_DEGREE, dev)
+        poses7 = w2c_to_pose(torch.as_tensor(
+            np.load(model / "pose" / "pose_1.npy"), device=dev))
+        stats = autosize.probe_capacities(
+            params, meta, serve_settings, poses7, float(data.fovx[0]),
+            float(data.fovy[0]), mode="no_soft")
+        del params, meta
+        prep = view0_prep(model, data, serve_settings, dev)
+        views.append(split_table_view("random view 0", prep, serve_settings,
+                                      stats, dev))
+        del prep
+    torch.cuda.empty_cache()
+    emit("split_table", seconds=time.perf_counter() - t0, views=views)
+
+
+def phase_gui(model: Path, dev):
+    """The viewer and its HTTP server on the trainer's entry-stream model:
+    real requests, each render's launches, and one panel per mode against
+    the same render through the plain versions of kernels A and B."""
+    import io
+    import json as json_mod
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from das3r_tpu_torch.gui import ViewerScene
+    from das3r_tpu_torch.gui import server as gui_server
+    from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.ops.splat import binning, entry_blend
+
+    t0 = time.perf_counter()
+    scene = ViewerScene.from_model_dir(str(model), TRAINER_ITERS, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    h, w = scene.settings.image_height, scene.settings.image_width
+    app = gui_server.ViewerApp(scene)
+    srv = gui_server.make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        t = time.perf_counter()
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            body, ctype = r.read(), r.headers.get("Content-Type")
+            if r.status != 200:
+                raise AssertionError(f"{path}: HTTP {r.status}")
+        return body, ctype, (time.perf_counter() - t) * 1e3
+
+    try:
+        page, ctype, _ = get("/")
+        if "text/html" not in ctype or b"viewer" not in page:
+            raise AssertionError(f"/: {ctype}, {page[:80]!r}")
+        state = json_mod.loads(get("/state")[0])
+        n_alive = int(scene.meta.alive.sum())
+        if state["n_gaussians"] != n_alive:
+            raise AssertionError(f"/state: {state}")
+        want = {"extract_chunks": 1, "blend_forward": 1}
+        yaws = [round(k * 2 * np.pi / 8 / 0.005, 3) for k in range(8)]
+        request_ms, pngs, launches = {}, {}, collections.Counter()
+        with _Timed(render_mod, "render") as renders:
+            for mode in ("rgb", "confidence", "no_soft"):
+                for yaw in yaws:
+                    (body, ctype, ms), counts = run_counted(
+                        lambda: get(f"/render?mode={mode}&yaw={yaw}"))
+                    if ctype != "image/png" or counts != {
+                            k: want.get(k, 0) for k in counts}:
+                        raise AssertionError(f"{mode} yaw {yaw}: {ctype}, "
+                                             f"launches {counts}")
+                    launches.update(counts)
+                    arr = np.asarray(Image.open(io.BytesIO(body)))
+                    if arr.shape != (h, w, 3) or arr.min() == arr.max():
+                        raise AssertionError(f"{mode} yaw {yaw}: shape "
+                                             f"{arr.shape}, blank")
+                    request_ms.setdefault(mode, []).append(ms)
+                    pngs[mode, yaw] = arr
+            traj, ctype, traj_ms = get("/traj")
+        if ctype != "image/png" or traj[:4] != b"\x89PNG":
+            raise AssertionError(f"/traj: {ctype}")
+        overflow = [int(r.aux.entry_overflow) for r in renders.results]
+        entries = [int(r.aux.n_contrib_tiles.sum()) for r in renders.results]
+        if len(overflow) != 24 or any(overflow):
+            raise AssertionError(f"entry_overflow per render {overflow}")
+        for yaw in yaws:
+            if (np.array_equal(pngs["rgb", yaw], pngs["confidence", yaw])
+                    or np.array_equal(pngs["rgb", yaw],
+                                      pngs["no_soft", yaw])):
+                raise AssertionError(f"yaw {yaw}: the modes render alike")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the viewer's server thread did not stop")
+
+    # one panel per mode against the plain versions of A and B
+    orbit = app.orbit
+    plain_chunks = binning.extract_chunks_plain
+
+    def plain_blend(table, rank, astart, count, settings):
+        out = entry_blend.blend_forward_plain(table, rank, astart, count,
+                                              settings)
+        return out.cpre, out.tfinal
+
+    parity, panel_ms = {}, {}
+    counters = kernel_counters()
+    for mode in ("rgb", "confidence", "no_soft"):
+        img = scene.render_image(orbit, mode)
+        for f in counters.values():
+            f.launches = 0
+        binning.extract_chunks = plain_chunks
+        entry_blend.blend_forward = plain_blend
+        try:
+            plain = scene.render_image(orbit, mode)
+        finally:
+            binning.extract_chunks = counters["extract_chunks"]
+            entry_blend.blend_forward = counters["blend_forward"]
+        counts = {name: f.launches for name, f in counters.items()}
+        torch.cuda.synchronize()
+        err = float((img - plain).abs().max())
+        if (any(counts.values()) or not torch.isfinite(img).all()
+                or not err <= BLEND_TOL):
+            raise AssertionError(f"{mode}: panel err {err} against the "
+                                 f"plain path (launches {counts})")
+        parity[mode] = err
+        panel_ms[mode] = time_ms(lambda: scene.render_panel(orbit, mode))
+    emit("gui", seconds=time.perf_counter() - t0, ply_load_seconds=load_s,
+         n_gaussians=n_alive, width=w, height=h, yaws=yaws,
+         request_ms_median={m: statistics.median(v)
+                            for m, v in request_ms.items()},
+         request_ms=request_ms, traj_ms=traj_ms,
+         render_ms_median=statistics.median(x * 1e3
+                                            for x in renders.seconds),
+         render_panel_ms=panel_ms, plain_path_max_abs_err=parity,
+         entries_per_render=entries, launches=dict(launches))
+    return dict(launches)
+
+
 def _bundle_copy(bundle):
     """The bundle with its own parameters, poses and meta (the trainer
     updates them in place)."""
@@ -1379,7 +1690,10 @@ def phase_trainer(bundle, k_probe: int, dev):
                           max_total_entries=st.max_total_entries,
                           entry_stream=st.entry_stream),
             launches=counts)
-        shutil.rmtree(model, ignore_errors=True)
+        if path == "entry_stream":
+            entry_model = model      # the viewer serves it (phase gui)
+        else:
+            shutil.rmtree(model, ignore_errors=True)
         # one more step of frame 0 on this path, profiled by das3r:: stage
         gt0 = torch.as_tensor(bundle.train_data.images[0], device=dev)
         fov0 = (float(bundle.train_data.fovx[0]),
@@ -1394,7 +1708,7 @@ def phase_trainer(bundle, k_probe: int, dev):
         torch.cuda.empty_cache()
     emit("trainer", iterations=TRAINER_ITERS, runs=runs,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return launches
+    return launches, entry_model
 
 
 def main() -> int:
@@ -1424,7 +1738,7 @@ def main() -> int:
         phase_train_profile(one_step)
         del one_step
         torch.cuda.empty_cache()
-        bundle, k_probe, build = phase_trainer_scene("cuda")
+        bundle, k_probe, build, probe_stats = phase_trainer_scene("cuda")
         # A, B, C at the trainer scene, where most of their launches run;
         # their serving-scene numbers beside
         results = phase_trainer_entry_parity(bundle, "cuda")
@@ -1435,7 +1749,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         results += phase_window_parity(bundle, k_probe, "cuda")
         torch.cuda.empty_cache()
-        trainer = phase_trainer(bundle, k_probe, "cuda")
+        phase_split_table(bundle, probe_stats, model, data, settings, "cuda")
+        trainer, entry_model = phase_trainer(bundle, k_probe, "cuda")
+        del bundle
+        torch.cuda.empty_cache()
+        gui = phase_gui(entry_model, "cuda")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # serving runs the entry-stream forward kernels once per view and no
@@ -1454,7 +1772,8 @@ def main() -> int:
             "build_scene_probe": build[k],
             f"trainer_entry_stream_{TRAINER_ITERS}_iters":
                 trainer["entry_stream"][k],
-            f"trainer_window_{TRAINER_ITERS}_iters": trainer["window"][k]}
+            f"trainer_window_{TRAINER_ITERS}_iters": trainer["window"][k],
+            "gui_24_panels": gui.get(k, 0)}
         r["launches"] = sum(r["launches_by_path"].values())
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)

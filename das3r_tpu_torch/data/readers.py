@@ -1,7 +1,7 @@
 """Stage-2 scene reader: the COLMAP-dir + DAS3R side-channel loader of
-``das3r_tpu/data/readers.py`` (numpy only), and its ``cameras.json``
-writer. Produces densely stacked numpy arrays; the per-scene dataset is
-small (<= ~200 frames at 512 px).
+``das3r_tpu/data/readers.py`` (numpy only), its NeRF-synthetic (Blender)
+loader and its ``cameras.json`` writer. Produces densely stacked numpy
+arrays; the per-scene dataset is small (<= ~200 frames at 512 px).
 """
 from __future__ import annotations
 
@@ -194,6 +194,89 @@ def load_scene(scene_dir: str, eval_mode: bool = False,
         dynamic_mask=dynamic_mask, enlarged_dynamic_mask=enlarged,
         gt_dynamic_mask=gt_dyn, names=names,
         train_idx=train_idx, test_idx=test_idx)
+
+
+def load_blender_scene(path: str, white_background: bool = False,
+                       eval_mode: bool = True, extension: str = ".png",
+                       rng: np.random.Generator | None = None):
+    """NeRF-synthetic (Blender) loader — readCamerasFromTransforms +
+    readNerfSyntheticInfo (reference scene/dataset_readers.py:394-470).
+
+    Returns (SceneData, (pcd_xyz, pcd_rgb)). Parses
+    transforms_{train,test}.json: `transform_matrix` is OpenGL c2w, flipped
+    to COLMAP axes via ``c2w[:3, 1:3] *= -1``; RGBA frames are composited
+    onto a white/black background; FoVy derives from camera_angle_x through
+    the shared focal. If ``points3d.ply`` is absent, 100k random points in
+    [-1.3, 1.3]^3 are generated (and written) exactly as the reference does.
+    No stage-1 side channels exist for this format (conf/depth/masks=None);
+    pair with :func:`das3r_tpu_torch.models.gaussians.init_from_point_cloud`.
+    """
+    from das3r_tpu_torch.data import ply as ply_io
+
+    def read_split(transformsfile):
+        with open(os.path.join(path, transformsfile)) as f:
+            contents = json.load(f)
+        fovx = contents["camera_angle_x"]
+        images, c2ws, names = [], [], []
+        for frame in contents["frames"]:
+            img_path = os.path.join(path, frame["file_path"] + extension)
+            c2w = np.array(frame["transform_matrix"], np.float64)
+            c2w[:3, 1:3] *= -1            # OpenGL (Y up, Z back) -> COLMAP
+            with Image.open(img_path) as im:
+                rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
+            bg = 1.0 if white_background else 0.0
+            rgb = rgba[..., :3] * rgba[..., 3:] + bg * (1 - rgba[..., 3:])
+            images.append(rgb.transpose(2, 0, 1))
+            c2ws.append(c2w)
+            names.append(os.path.basename(frame["file_path"]) + extension)
+        return np.stack(images), np.stack(c2ws), names, fovx
+
+    tr_img, tr_c2w, tr_names, fovx = read_split("transforms_train.json")
+    te_path = os.path.join(path, "transforms_test.json")
+    if os.path.exists(te_path):
+        te_img, te_c2w, te_names, _ = read_split("transforms_test.json")
+    else:
+        te_img = np.empty((0,) + tr_img.shape[1:], np.float32)
+        te_c2w = np.empty((0, 4, 4))
+        te_names = []
+
+    images = np.concatenate([tr_img, te_img])
+    poses_c2w = np.concatenate([tr_c2w, te_c2w]).astype(np.float32)
+    F, _, H, W = images.shape
+    focal = transforms.fov2focal(fovx, W)
+    fovy = transforms.focal2fov(focal, H)
+    K = np.tile(np.asarray([[focal, 0, W / 2], [0, focal, H / 2],
+                            [0, 0, 1]], np.float32), (F, 1, 1))
+
+    if eval_mode and len(te_names):
+        train_idx = np.arange(len(tr_names))
+        test_idx = np.arange(len(tr_names), F)
+    else:
+        train_idx, test_idx = np.arange(F), np.empty(0, np.int64)
+
+    data = SceneData(
+        images=images.astype(np.float32), poses_c2w=poses_c2w,
+        poses_w2c_colmap=np.linalg.inv(
+            poses_c2w.astype(np.float64)).astype(np.float32),
+        intrinsics=K, fovx=np.full(F, fovx, np.float32),
+        fovy=np.full(F, fovy, np.float32),
+        conf=None, depth=None, dyna_avg=None, dyna_max=None,
+        dynamic_mask=None, enlarged_dynamic_mask=None, gt_dynamic_mask=None,
+        names=tr_names + te_names, train_idx=train_idx, test_idx=test_idx)
+
+    ply_path = os.path.join(path, "points3d.ply")
+    if os.path.exists(ply_path):
+        xyz, rgb, _ = ply_io.read_point_cloud(ply_path)
+    else:
+        rng = rng or np.random.default_rng(0)
+        xyz = rng.random((100_000, 3)) * 2.6 - 1.3
+        rgb = rng.random((100_000, 3))
+        try:
+            ply_io.write_point_cloud(ply_path, xyz.astype(np.float32),
+                                     (rgb * 255).astype(np.uint8))
+        except OSError:
+            pass
+    return data, (xyz, rgb)
 
 
 def camera_to_json(cam_id: int, name: str, w2c: np.ndarray,

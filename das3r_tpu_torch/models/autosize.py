@@ -106,8 +106,9 @@ def auto_dup_cap(params, meta, settings: RasterSettings, poses7,
 
 
 # Below this many duplication-table slots (N x dup cap) the split table's
-# heavy-row compaction costs more than it saves (the JAX package's
-# measurement on a TPU; the port does not build the split table).
+# heavy-row compaction costs more than it saves: the JAX package's value,
+# kept so that both packages pick the same table. The card's own binning
+# times of the split against the full-width table are in PERF.md.
 SPLIT_TABLE_MIN_SLOTS = 8 * 1024 * 1024
 
 
@@ -130,8 +131,7 @@ def auto_split_table(stats: ProbeStats, n_gaussians: int, dup_cap: int,
     ``n*L + heavy_cap(L) * (dup_cap - L)``: ``{"light_dup_width": L,
     "heavy_rows_cap": cap}``, or ``{"heavy_rows_cap": None}`` when no split
     beats the full-width table or the domain is below
-    ``SPLIT_TABLE_MIN_SLOTS``. The port accepts the result in its settings
-    and sorts the full-width table all the same (settings.py)."""
+    ``SPLIT_TABLE_MIN_SLOTS``."""
     no_split = {"heavy_rows_cap": None}
     if n_gaussians * dup_cap < SPLIT_TABLE_MIN_SLOTS:
         return no_split

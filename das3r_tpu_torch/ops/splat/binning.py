@@ -23,10 +23,11 @@ Differences from the JAX package, by design:
   (``extract_chunks``, replacing ``_extract_chunks_pallas``), and so is
   the window gather plus rank decode (``extract_windows``, replacing
   ``_extract_windows_pallas``).
-* The split-width duplication table is not ported: a set
-  ``heavy_rows_cap`` is ignored and the full-width table is sorted. Its
-  stream equals the split table's whenever no heavy row overflows.
-  ``depth_sort_bits > 0`` (the quantized-depth binning) is not ported.
+* The split-width duplication table (``heavy_rows_cap`` set, ``0 <
+  light_dup_width < max_tiles_per_gaussian``) emits the same keys as the
+  JAX one, and reports ``entry_overflow`` without truncating, as JAX does
+  on that branch. ``depth_sort_bits > 0`` (the quantized-depth binning)
+  is not ported.
 
 Every function here runs on detached inputs: gradients flow through the
 gathered attribute values, never through the indices.
@@ -84,15 +85,56 @@ class SortedKeyStream(NamedTuple):
     nbits: int                    # rank = key & (2^nbits - 1)
     dup_overflow: torch.Tensor    # [] Gaussians whose rect was cut by D
     entry_overflow: torch.Tensor  # [] live entries beyond max_total_entries
+    heavy_overflow: torch.Tensor  # [] rect cells of the heavy rows past
+    #                               heavy_rows_cap (0 without the split
+    #                               table): the JAX count, which with
+    #                               tight_binning upper-bounds the live
+    #                               entries dropped
 
 
 def rank_bits(n: int) -> int:
     return max(int(n - 1).bit_length(), 1)
 
 
+def _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, d0: int,
+               d_width: int, nbits: int, settings: RasterSettings):
+    """Live ``tile << nbits | rank`` keys of rect cells [d0, d0 + d_width)
+    of the rows described by the per-row arrays (``rank`` [R] int64 is each
+    row's depth rank), row-major: depth-major when the rows are in depth
+    order."""
+    s = settings
+    dev = width.device
+    # Cell d of a row: d // width via float: (d + 0.5) / w lies strictly
+    # inside (d/w, (d+1)/w), far from the f32 rounding error at these
+    # magnitudes.
+    d_idx = d0 + torch.arange(d_width, dtype=torch.int32, device=dev)[None, :]
+    row = ((d_idx.to(torch.float32) + 0.5)
+           / width[:, None].to(torch.float32)).to(torch.int32)
+    col = d_idx - row * width[:, None]
+    ty = rect_min[:, 1:2] + row
+    tx = rect_min[:, 0:1] + col
+    valid = d_idx < ntt[:, None]
+    if s.tight_binning:
+        valid = valid & _tile_pair_keep(m2d, conic, q_cap, tx, ty, s)
+    tile = (ty * s.tiles_x + tx).to(torch.int64)
+    # A Gaussian touches a tile at most once, so the key is unique and its
+    # order is tile-major, depth-minor. Boolean indexing keeps row-major
+    # order.
+    return ((tile << nbits) | rank[:, None])[valid]
+
+
 def _sorted_key_stream(prep: Preprocessed,
                        settings: RasterSettings) -> SortedKeyStream:
-    """Duplication table -> packed self-describing keys -> one sort."""
+    """Duplication table -> packed self-describing keys -> one sort.
+
+    The full-width table is [N, D]. With ``heavy_rows_cap`` set and ``0 <
+    light_dup_width < D`` it is split as in the JAX package: every row
+    emits its first L cells into [N, L], and the rows with more cells, in
+    depth order, take the first ``heavy_rows_cap`` rows of a [H_cap, D - L]
+    table for the rest. A heavy row past the cap (the farthest go first)
+    keeps its first L cells; the cells it loses are ``heavy_overflow``.
+    Without such a row both tables together hold the full-width table's
+    keys."""
     s = settings
     n = prep.depth.shape[0]
     d_cap = s.max_tiles_per_gaussian
@@ -110,39 +152,50 @@ def _sorted_key_stream(prep: Preprocessed,
     ntt = torch.where(alive, torch.clamp_max(prep.n_tiles_touched, d_cap),
                       torch.zeros_like(prep.n_tiles_touched))[order]
     rect_min = prep.rect_min[order]
+    m2d, conic, q_cap = prep.mean2d[order], prep.conic[order], prep.q_cap[order]
     dup_overflow = torch.sum(prep.n_tiles_touched > d_cap)
+    rank = torch.arange(n, dtype=torch.int64, device=dev)
+    split = s.heavy_rows_cap is not None and 0 < s.light_dup_width < d_cap
 
-    # Entry (i, d) is the d-th rect cell of depth-ranked Gaussian i.
-    # d // width via float: (d + 0.5) / w lies strictly inside
-    # (d/w, (d+1)/w), far from the f32 rounding error at these magnitudes.
-    d_idx = torch.arange(d_cap, dtype=torch.int32, device=dev)[None, :]
-    row = ((d_idx.to(torch.float32) + 0.5)
-           / width[:, None].to(torch.float32)).to(torch.int32)
-    col = d_idx - row * width[:, None]
-    ty = rect_min[:, 1:2] + row
-    tx = rect_min[:, 0:1] + col
-    valid = d_idx < ntt[:, None]
-    if s.tight_binning:
-        valid = valid & _tile_pair_keep(prep.mean2d[order], prep.conic[order],
-                                        prep.q_cap[order], tx, ty, s)
-    tile = (ty * s.tiles_x + tx).to(torch.int64)
-    rank_iota = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
-    # A Gaussian touches a tile at most once, so the key is unique and its
-    # order is tile-major, depth-minor. Boolean indexing keeps row-major
-    # (depth-major) order, which the capped compaction below relies on.
-    live = ((tile << nbits) | rank_iota)[valid]
+    heavy_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if split:
+        L, h_cap = s.light_dup_width, s.heavy_rows_cap
+        heavy = ntt > L                                   # [N] (0 if dead)
+        h_pos = torch.cumsum(heavy, 0) - heavy.to(torch.int64)
+        in_h = heavy & (h_pos < h_cap)
+        # hid[j]: the depth rank of heavy row j, n on unused rows
+        hid = torch.full((h_cap + 1,), n, dtype=torch.int64, device=dev)
+        hid.scatter_(0, torch.where(in_h, h_pos, h_cap),
+                     torch.where(in_h, rank, n))
+        hid = hid[:-1]
+        heavy_overflow = torch.sum(torch.where(
+            heavy & ~in_h, ntt - L, torch.zeros_like(ntt))).to(torch.int64)
+        hc = torch.clamp_max(hid, n - 1)
+        live = torch.cat([
+            _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0, L,
+                       nbits, s),
+            _emit_keys(width[hc], rect_min[hc],
+                       torch.where(hid < n, ntt[hc], torch.zeros_like(hc)),
+                       m2d[hc], conic[hc], q_cap[hc], hc, L, d_cap - L,
+                       nbits, s)])
+    else:
+        live = _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0,
+                          d_cap, nbits, s)
 
     entry_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     if s.max_total_entries is not None:
         entry_overflow = torch.clamp_min(
             torch.tensor(live.numel() - s.max_total_entries, device=dev), 0)
-        if n * d_cap > s.full_sort_below:
-            # the JAX compaction buffer: the farthest Gaussians' entries
-            # beyond the cap are dropped
+        # the JAX compaction buffer of the full-width table: the farthest
+        # Gaussians' entries beyond the cap are dropped (its keys are in
+        # depth-major order; the split table's are not, and JAX's split
+        # branch drops nothing either)
+        if not split and n * d_cap > s.full_sort_below:
             live = live[: s.max_total_entries]
     return SortedKeyStream(sorted_packed=torch.sort(live).values, order=order,
                            nbits=nbits, dup_overflow=dup_overflow,
-                           entry_overflow=entry_overflow)
+                           entry_overflow=entry_overflow,
+                           heavy_overflow=heavy_overflow)
 
 
 class EntryStream(NamedTuple):
@@ -294,7 +347,7 @@ def entry_stream_from_keys(ks: SortedKeyStream, settings: RasterSettings,
                        astart=lay.astart.to(torch.int32),
                        dup_overflow=ks.dup_overflow,
                        entry_overflow=ks.entry_overflow + lay.stream_drop,
-                       heavy_overflow=torch.zeros_like(lay.stream_drop))
+                       heavy_overflow=ks.heavy_overflow)
 
 
 def bin_entry_stream(prep: Preprocessed,
@@ -323,7 +376,7 @@ class TileBins(NamedTuple):
     full_count: torch.Tensor  # [T] int32 pre-truncation count
     dup_overflow: torch.Tensor
     entry_overflow: torch.Tensor
-    heavy_overflow: torch.Tensor  # [] always 0: no split table
+    heavy_overflow: torch.Tensor  # [] see SortedKeyStream
 
 
 def gids(bins: TileBins) -> torch.Tensor:
@@ -457,4 +510,4 @@ def bin_gaussians(prep: Preprocessed, settings: RasterSettings) -> TileBins:
     return TileBins(rank=rank, delta=delta, order=ks.order, count=count,
                     full_count=full_count, dup_overflow=ks.dup_overflow,
                     entry_overflow=ks.entry_overflow,
-                    heavy_overflow=torch.zeros_like(ks.entry_overflow))
+                    heavy_overflow=ks.heavy_overflow)

@@ -72,7 +72,7 @@ class RasterAux(NamedTuple):
     dup_overflow: torch.Tensor      # [] Gaussians whose rect was cut by D
     entry_overflow: torch.Tensor    # [] entries dropped by max_total_entries
     max_tiles_touched: torch.Tensor  # [] largest pre-cap rect tile count
-    heavy_overflow: torch.Tensor    # [] always 0: no split table
+    heavy_overflow: torch.Tensor    # [] heavy-row cells past heavy_rows_cap
     heavy_rows: torch.Tensor        # [] Gaussians beyond light_dup_width
     dup_hist: torch.Tensor          # [len(DUP_HIST_WIDTHS)] footprint counts
 

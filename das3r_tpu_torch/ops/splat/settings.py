@@ -21,10 +21,9 @@ as follows:
   cut by the ``extract_windows`` kernel or, with ``use_dma_windows=False``,
   by the aligned row gather. The JAX package also falls back to the window
   path off the TPU and without ``max_total_entries``; the port does not.
-* Not ported (ROADMAP.md): the split-width duplication table
-  (``heavy_rows_cap`` is accepted and ignored: the full-width table is
-  sorted, which gives the split table's stream whenever no heavy row
-  overflows; ``light_dup_width`` only feeds telemetry), the quantized-depth
+* ``heavy_rows_cap`` and ``light_dup_width``: the split-width duplication
+  table, as in the JAX package (binning.py), on both raster branches.
+* Not ported (ROADMAP.md): the quantized-depth
   binning (``depth_sort_bits > 0`` raises), tile sharding
   (``entries_per_shard``), the backward reduction options (``segsum_*``)
   and ``table_bf16`` (rasterize raises).

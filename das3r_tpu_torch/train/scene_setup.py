@@ -67,10 +67,8 @@ def build_scene(
     Where the probe picks a split duplication table
     (``autosize.auto_split_table``, from N x dup cap of 8M slots on: 1.5M
     Gaussians reach it), the settings carry its ``light_dup_width`` and
-    ``heavy_rows_cap``, but the port sorts the full-width table: its stream
-    equals the split table's whenever no heavy row overflows, so only the
-    JAX package's heavy-overflow drops differ. The split table is not
-    ported (ROADMAP.md).
+    ``heavy_rows_cap`` and binning builds it, as in the JAX package; the
+    trainer regrows the cap on ``heavy_overflow``.
     """
     dev = resolve_device(device)
     train = data.subset(data.train_idx)

@@ -60,8 +60,8 @@ class StepMetrics(NamedTuple):
     # and the (Gaussian, tile) pairs cut by ``max_tiles_per_gaussian``
     tile_overflow: torch.Tensor
     dup_overflow: torch.Tensor
-    # the split duplication table's drops (0: not ported) and the live
-    # count of Gaussians wider than ``light_dup_width``
+    # the split duplication table's drops and the live count of
+    # Gaussians wider than ``light_dup_width``
     heavy_overflow: torch.Tensor
     heavy_rows: torch.Tensor
 

@@ -318,8 +318,9 @@ def train_scene(
                      f"(recompile at next chunk)")
             h_ovf = int(metrics.heavy_overflow.max())
             if h_ovf > 0 and settings.heavy_rows_cap is not None:
-                # never fires in the port (no split table: heavy_overflow
-                # is 0); kept with the JAX package's rule
+                # Gaussians grew past the split table's light width faster
+                # than the probed heavy capacity: regrow from the live
+                # heavy-row count, as the JAX package does
                 old_h = settings.heavy_rows_cap
                 new_h = max(autosize.auto_heavy_cap(
                     int(metrics.heavy_rows.max())),

@@ -585,3 +585,109 @@ def test_window_wrappers_raise_on_bad_cuda_input(cuda):
         binning.extract_windows(keys, keys[:4].int(), 128, 9, 512)
     with pytest.raises(ValueError, match="must be on"):
         binning.extract_windows(keys, keys[:4].cpu(), 128, 9, 512)
+
+
+def card_prep(cuda, n=6000, seed=7):
+    """Preprocess outputs on the card of random Gaussians before an
+    identity camera (the scene of ``tests/test_binning_split.py``'s
+    ``make_scene``), at that test's settings with the split's light width
+    4: (settings, Preprocessed, heavy rows)."""
+    from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.ops.splat.preprocess import preprocess
+    s = RasterSettings(image_height=96, image_width=128, sh_degree=0,
+                       max_per_tile=512, max_tiles_per_gaussian=16,
+                       light_dup_width=4)
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    means = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.5, 1.5, n),
+                      rng.uniform(2.0, 8.0, n)], -1).astype(f32)
+    scales = np.exp(rng.uniform(-3.2, -1.2, (n, 3))).astype(f32)
+    rots = rng.standard_normal((n, 4)).astype(f32)
+    ops = rng.uniform(0.05, 0.95, (n, 1)).astype(f32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(f32)
+    view, proj, campos, tfx, tfy = render_mod._raster_common(1.1, 1.1, cuda)
+
+    def t(x):
+        return torch.as_tensor(x, device=cuda)
+    prep = preprocess(t(means), t(ops), s, viewmatrix=view, projmatrix=proj,
+                      campos=campos, colors_precomp=t(colors),
+                      scales=t(scales), rotations=t(rots), tan_fovx=tfx,
+                      tan_fovy=tfy)
+    ntt = torch.clamp_max(prep.n_tiles_touched, s.max_tiles_per_gaussian)
+    heavy = int(((ntt > s.light_dup_width) & prep.binnable).sum())
+    return s, prep, heavy
+
+
+def host_heavy_overflow(prep, s):
+    """The JAX package's ``heavy_overflow`` on the host: the rect cells past
+    L of the heavy rows, in depth order, beyond the first heavy_rows_cap."""
+    alive = prep.binnable.cpu().numpy()
+    depth = np.where(alive, prep.depth.cpu().numpy(), np.inf)
+    order = np.argsort(depth, kind="stable")
+    ntt = np.where(alive, np.minimum(prep.n_tiles_touched.cpu().numpy(),
+                                     s.max_tiles_per_gaussian), 0)[order]
+    heavy = ntt > s.light_dup_width
+    h_pos = np.cumsum(heavy) - heavy
+    over = heavy & (h_pos >= s.heavy_rows_cap)
+    return int((ntt - s.light_dup_width)[over].sum())
+
+
+def test_split_stream_equals_full_width_stream(cuda):
+    """On the card, the split table with an ample cap gives the full-width
+    table's keys and both branches' streams bitwise (kernels A and F
+    launched); a starved cap reports the JAX formula's heavy_overflow and
+    keeps a subset of the full-width keys."""
+    import dataclasses
+    s, prep, heavy = card_prep(cuda)
+    assert heavy > 8
+    ample = dataclasses.replace(s, heavy_rows_cap=-(-heavy * 2 // 128) * 128)
+    full_keys = binning._sorted_key_stream(prep, s).sorted_packed
+    ks = binning._sorted_key_stream(prep, ample)
+    assert torch.equal(ks.sorted_packed, full_keys)
+    assert int(ks.heavy_overflow) == 0
+    before = binning.extract_chunks.launches
+    es, es_full = (binning.bin_entry_stream(prep, st) for st in (ample, s))
+    assert binning.extract_chunks.launches == before + 2
+    for f in ("rank", "chunk_tile", "count", "astart", "order"):
+        assert torch.equal(getattr(es, f), getattr(es_full, f)), f
+    before = binning.extract_windows.launches
+    tb, tb_full = (binning.bin_gaussians(prep, st) for st in (ample, s))
+    assert binning.extract_windows.launches == before + 2
+    for f in ("rank", "delta", "count", "full_count"):
+        assert torch.equal(getattr(tb, f), getattr(tb_full, f)), f
+
+    starved = dataclasses.replace(
+        s, heavy_rows_cap=max(128, (heavy // 3) // 128 * 128))
+    ks = binning._sorted_key_stream(prep, starved)
+    assert int(ks.heavy_overflow) == host_heavy_overflow(prep, starved) > 0
+    assert bool(torch.isin(ks.sorted_packed, full_keys).all())
+    assert ks.sorted_packed.numel() < full_keys.numel()
+
+
+def test_viewer_panel_matches_plain_render(cuda):
+    """A viewer panel on the card (kernels A and B, once each) against the
+    same panel on the CPU (their plain versions), float image within 2e-4."""
+    from das3r_tpu_torch.data.synthetic import random_gaussian_scene
+    from das3r_tpu_torch.gui import ViewerScene
+    from das3r_tpu_torch.ops.splat import entry_blend as eb
+    params, meta, poses = random_gaussian_scene(
+        3000, n_frames=3, height=96, width=128, seed=0, device="cpu")
+    s = RasterSettings(image_height=96, image_width=128, sh_degree=3,
+                       max_tiles_per_gaussian=32)
+    images = {}
+    for dev in ("cpu", cuda):
+        scene = ViewerScene(params=params, meta=meta, settings=s,
+                            train_poses7=poses.all_poses().numpy(),
+                            device=dev)
+        orbit = scene.default_orbit()
+        orbit.orbit(300.0, 80.0)
+        before = (binning.extract_chunks.launches, eb.blend_forward.launches)
+        images[str(dev)] = {m: scene.render_image(orbit, m).cpu()
+                            for m in ("rgb", "confidence", "no_soft")}
+        launched = (binning.extract_chunks.launches - before[0],
+                    eb.blend_forward.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (3, 3))
+    for m, want in images["cpu"].items():
+        got = images[str(torch.device(cuda))][m]
+        assert float(want.abs().max()) > 0, m
+        assert float((got - want).abs().max()) <= BLEND_TOL, m
