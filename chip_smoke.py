@@ -106,10 +106,36 @@ failure:
    request times (host clock), the ``render_panel`` times (CUDA events)
    and the PLY load.
 
+16. stage1: ``das3r_tpu_torch.predictor.runner.run_scene`` at
+   DUST3R_LARGE_CONFIG (606M parameters, seeded random weights from the
+   testkit's generator, std 0.02) on ``cuda``: a 16-frame synthetic video
+   at 288x512, ``eval_scene_graph(16)`` (110 symmetrized edges), the
+   aligner's defaults (300 iterations). Checks every output finite, the
+   alignment loss falling, every artifact file written and no raster
+   kernel launched; prints the parameter count, the peak device memory,
+   each part's seconds (the host initialization apart from the loop),
+   the loop's ms per iteration, its first and last loss, encode ms per
+   frame and decode ms per pair (CUDA events, batches of 8) with a
+   float32 and a bfloat16 trunk, a profile of 10 alignment iterations and
+   of one decode batch, and the runner's first decode batch (8 pairs,
+   ``encode_frames`` then ``decode_pairs`` on gathered tokens) on the card
+   against the same functions in float32 on the CPU: each float32 map
+   within 1e-4 x max|CPU|, the bfloat16 trunk's within the JAX package's
+   bf16 bars (dynamic mask mean abs < 0.05, pts3d median relative < 0.1).
+   The precision is the entry points' own (``utils/device.py::
+   resolve_device`` turns TF32 off); the script sets none.
+17. pipeline: ``das3r_tpu_torch.pipeline.run`` from a ``.pth`` of the same
+   weights that the phase writes with ``testkit.save_reference_checkpoint``
+   (the predictor's config is read back from it): 8 frames at size
+   256 (144x256), stage 1, ``rearrange``, ``build_scene``, 20 stage-2
+   iterations and ``render_sets``. Checks a finite stage-2 loss, the
+   renders and the video, and the launches of each stage: D and F in the
+   probe, A, B, C in training, A and B in the renders.
+
 Then the ``kernels`` line (A, B, C at the trainer scene with their
 random-scene numbers under ``random_scene``; D, E, F at the trainer
-scene; launches by path, the viewer's included), the ``nvidia-smi``
-line, and last the device line. Everything it
+scene; launches by path, the viewer's, stage 1's and the pipeline's
+included), the ``nvidia-smi`` line, and last the device line. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -159,6 +185,16 @@ WINDOW_BWD_SFU_PER_EVAL = 4
 TRAINER_FRAMES = 12          # eval mode holds out one: 11 train frames
 TRAINER_ITERS = 44           # 4 epochs of the 11 train frames
 K_CEILING = 16384            # the trainer's max_per_tile regrow ceiling
+STAGE1_FRAMES = 16           # the JAX package's quality-harness length
+STAGE1_EDGES = 110           # swinstride-5-noncyclic over 16, symmetrized
+# x max|CPU| per map: one pair of DUST3R_LARGE_CONFIG on the card against
+# the same model on the CPU, TF32 off
+STAGE1_CPU_BAR = 1e-4
+STAGE1_BF16_MASK_MEAN = 0.05      # the JAX package's bf16 bars
+STAGE1_BF16_PTS_MEDIAN_REL = 0.1
+PIPELINE_FRAMES = 8
+PIPELINE_SIZE = 256          # 144x256 frames: build_scene's k-NN ~3 s
+PIPELINE_ITERS = 20
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -311,8 +347,6 @@ def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -704,12 +738,47 @@ def phase_main(scene: Path, model: Path, device=None):
     return launches
 
 
+def profile_call(fn, top: int = 10):
+    """One call of ``fn`` under ``torch.profiler`` (after a synchronize):
+    (its wall ms, the device's busy ms and idle share, the kernel
+    launches, the ``top`` kernels and host operators that took the most
+    time; the profile). A ``das3r::`` range's device-side span is not a
+    kernel and is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("das3r::")),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU
+                   and not e.key.startswith("das3r::")),
+                  key=lambda e: -e.self_cpu_time_total)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                kernel_launches=sum(e.count for e in kern),
+                device_top=[dict(name=e.key[:100], calls=e.count,
+                                 ms=e.self_device_time_total / 1e3)
+                            for e in kern[:top]],
+                host_top=[dict(name=e.key[:60], calls=e.count,
+                               ms=e.self_cpu_time_total / 1e3)
+                          for e in host[:top]]), prof
+
+
 def phase_profile(model: Path, data, settings, dev):
     """View 1 once more, under torch.profiler, after the main phase."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from das3r_tpu_torch.eval.render_tool import load_gaussians_ply
     from das3r_tpu_torch.models import render as render_mod
     from das3r_tpu_torch.utils.quat import w2c_to_pose
@@ -728,40 +797,20 @@ def phase_profile(model: Path, data, settings, dev):
                                  device=dev)
 
     view1()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        view1()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    summary, prof = profile_call(view1, top=8)
     # das3r:: ranges are the rasterizer's stages (ops/splat/rasterize.py,
-    # binning.py). Each also shows as a device-side span, which is not a
-    # kernel; an operator's or a stage's device time is that of its kernels.
-    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("das3r::")),
-                  key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    host = [e for e in events if e.device_type == DeviceType.CPU]
+    # binning.py); an operator's or a stage's device time is that of its
+    # kernels.
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     stages = [e for e in host if e.key.startswith("das3r::")]
     ops = sorted((e for e in host if not e.key.startswith("das3r::")),
                  key=lambda e: -e.device_time_total)
-    host.sort(key=lambda e: -e.self_cpu_time_total)
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         kernel_launches=sum(e.count for e in kern),
+    emit("profile", **summary,
          stages=[dict(name=e.key, host_ms=e.cpu_time_total / 1e3,
                       device_ms=e.device_time_total / 1e3) for e in stages],
          ops_top=[dict(name=e.key, calls=e.count,
                        device_ms=e.device_time_total / 1e3)
-                  for e in ops[:12]],
-         host_top=[dict(name=e.key[:60], calls=e.count,
-                        ms=e.self_cpu_time_total / 1e3)
-                   for e in host[:8]],
-         device_top=[dict(name=e.key[:100], calls=e.count,
-                          ms=e.self_device_time_total / 1e3)
-                     for e in kern[:8]])
+                  for e in ops[:12]])
 
 
 def train_scene(data, dev):
@@ -914,59 +963,39 @@ def stage_times(prof) -> dict:
 
 def phase_train_profile(one_step, phase: str = "train_profile"):
     """One more train step under ``torch.profiler``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("das3r::")),
-                  key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    summary, prof = profile_call(one_step, top=12)
     stages = stage_times(prof)
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU
-                   and not e.key.startswith("das3r::")),
-                  key=lambda e: -e.self_cpu_time_total)
-    emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         kernel_launches=sum(e.count for e in kern),
-         stages=stages, stages_total_ms=sum(
-             sum(d.values()) for d in stages.values()),
-         host_top=[dict(name=e.key[:60], calls=e.count,
-                        ms=e.self_cpu_time_total / 1e3)
-                   for e in host[:8]],
-         device_top=[dict(name=e.key[:100], calls=e.count,
-                          ms=e.self_device_time_total / 1e3)
-                     for e in kern[:12]])
+    emit(phase, **summary, stages=stages, stages_total_ms=sum(
+        sum(d.values()) for d in stages.values()))
 
 
 class _Timed:
     """Wrap ``module.name`` while inside: each call's seconds (after a
-    synchronize) and its result are kept, so that one stage of an entry
-    point can be timed without running it twice."""
+    synchronize) and its result are kept, and its kernel launches (the
+    counts' change across the call) summed into ``launches``, so that one
+    stage of an entry point can be timed and counted without running it
+    twice."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.seconds, self.results = [], []
+        self.launches = collections.Counter()
 
     def __enter__(self):
         import torch
         self.orig = orig = getattr(self.module, self.name)
+        counted = kernel_counters()
 
         def wrapped(*args, **kw):
+            before = {k: f.launches for k, f in counted.items()}
             t0 = time.perf_counter()
             out = orig(*args, **kw)
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
             self.results.append(out)
+            self.launches.update({k: f.launches - before[k]
+                                  for k, f in counted.items()})
             return out
         setattr(self.module, self.name, wrapped)
         return self
@@ -1711,6 +1740,270 @@ def phase_trainer(bundle, k_probe: int, dev):
     return launches, entry_model
 
 
+def stage1_weights():
+    """DUST3R_LARGE_CONFIG's weights in the reference checkpoint's layout,
+    from the testkit's generator (std 0.02) on the seed."""
+    import numpy as np
+    from das3r_tpu_torch.models.croco.dust3r import DUST3R_LARGE_CONFIG
+    from das3r_tpu_torch.models.croco.testkit import random_torch_state_dict
+    t0 = time.perf_counter()
+    sd = random_torch_state_dict(DUST3R_LARGE_CONFIG,
+                                 np.random.default_rng(SEED))
+    return sd, time.perf_counter() - t0
+
+
+def synthetic_frames(name: str, n_frames: int, seed: int) -> Path:
+    """A directory of ``n_frames`` synthetic video frames at 288x512 (the
+    stage-1 scene's images)."""
+    from das3r_tpu_torch.data import synthetic
+    gen, frames = WORK / f"{name}_gen", WORK / f"{name}_frames"
+    synthetic.make_synthetic_stage1_dir(str(gen), n_frames=n_frames,
+                                        height=HEIGHT, width=WIDTH,
+                                        seed=seed)
+    frames.mkdir(parents=True)
+    for p in sorted(gen.glob("frame_*.png")):
+        shutil.copy(p, frames)
+    shutil.rmtree(gen)
+    return frames
+
+
+def phase_stage1(sd, dev):
+    """``runner.run_scene`` at DUST3R_LARGE_CONFIG on a 16-frame video;
+    encode / decode timings in float32 and with a bfloat16 trunk; one pair
+    on the card against the same model on the CPU."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
+    from das3r_tpu_torch.models.croco.dust3r import (DUST3R_LARGE_CONFIG,
+                                                     AsymmetricCroCo3D)
+    from das3r_tpu_torch.predictor import alignment, inference, pairs, runner
+
+    frames = synthetic_frames("stage1", STAGE1_FRAMES, SEED + 11)
+    out_dir = WORK / "stage1_out"
+    t0 = time.perf_counter()
+    model = AsymmetricCroCo3D(DUST3R_LARGE_CONFIG)
+    load_reference_state_dict(model, sd)
+    model.to(dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    stats, progress, loop_args = {}, [], {}
+    optimize = alignment.optimize
+
+    def keep_args(params, *args, **kw):
+        """the loop's inputs, its parameters as they enter, for the
+        profile below"""
+        loop_args.update(args=args, kw=kw, params=dataclasses.replace(
+            params, **{f.name: getattr(params, f.name).detach().clone()
+                       for f in dataclasses.fields(params)}))
+        return optimize(params, *args, **kw)
+    alignment.optimize = keep_args
+    try:
+        res, launches = run_counted(lambda: runner.run_scene(
+            str(frames), str(out_dir), model, device=dev, stats=stats,
+            verbose=progress.append))
+    finally:
+        alignment.optimize = optimize
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    sc = res.scene
+    if stats["n_edges"] != STAGE1_EDGES or res.n_frames != STAGE1_FRAMES:
+        raise AssertionError(f"{res.n_frames} frames, {stats['n_edges']} "
+                             f"edges")
+    bad = [k for k in ("depths", "poses_c2w", "focals", "intrinsics",
+                       "im_conf", "dyna_avg", "dyna_max")
+           if not np.isfinite(getattr(sc, k)).all()]
+    al = stats["align"]
+    if bad or not math.isfinite(sc.final_loss):
+        raise AssertionError(f"non-finite stage-1 output: {bad}, loss "
+                             f"{sc.final_loss}")
+    if not al["last_loss"] < al["first_loss"]:
+        raise AssertionError(f"the alignment loss did not fall: "
+                             f"{al['first_loss']} -> {al['last_loss']}")
+    want = ["pred_traj.txt", "pred_intrinsics.txt"] + [
+        f"{p}_{i:04d}.{ext}" for i in range(STAGE1_FRAMES)
+        for p, ext in (("frame", "png"), ("frame", "npy"), ("conf", "npy"),
+                       ("dyna_avg", "npy"), ("dyna_max", "npy"),
+                       ("dynamic_mask", "png"),
+                       ("enlarged_dynamic_mask", "png"))]
+    missing = [f for f in want if not (out_dir / f).exists()]
+    if missing:
+        raise AssertionError(f"stage 1 did not write {missing[:6]}")
+    if any(launches.values()):
+        raise AssertionError(f"stage 1 launched a raster kernel: {launches}")
+
+    # encode ms per frame, decode ms per pair (CUDA events, batches of 8)
+    images01, _ = runner.load_frames(str(frames))
+    imgs = torch.as_tensor(inference.normalize_images(images01),
+                           dtype=torch.float32, device=dev)
+    edges = pairs.make_pairs(STAGE1_FRAMES,
+                             pairs.eval_scene_graph(STAGE1_FRAMES))
+    ei = torch.as_tensor([i for i, _ in edges[:8]], device=dev)
+    ej = torch.as_tensor([j for _, j in edges[:8]], device=dev)
+    # the runner's first decode batch: its 8 pairs' tokens gathered from
+    # the frames they read, encoded in one batch as the runner encodes
+    used = sorted({k for e in edges[:8] for k in e})
+    li = torch.as_tensor([used.index(i) for i, _ in edges[:8]])
+    lj = torch.as_tensor([used.index(j) for _, j in edges[:8]])
+
+    def first_batch(m, on):
+        on = torch.device(on)
+        feats, poss = inference.encode_frames(m, imgs[used].to(on))
+        return [{k: v.float().cpu() for k, v in r.items()}
+                for r in inference.decode_pairs(m, feats, poss, li.to(on),
+                                                lj.to(on), HEIGHT, WIDTH)]
+
+    def timings(m):
+        feats, poss = inference.encode_frames(m, imgs)
+        return dict(
+            encode_ms_per_frame=time_ms(
+                lambda: inference.encode_frames(m, imgs[:8])) / 8,
+            decode_ms_per_pair=time_ms(
+                lambda: inference.decode_pairs(m, feats, poss, ei, ej,
+                                               HEIGHT, WIDTH)) / 8)
+    timing = {"float32": timings(model)}
+    # where the time goes: 10 alignment iterations from the loop's start,
+    # and one decode batch of 8 pairs (float32)
+    edge, dyn, cfg, *shape = loop_args["args"]
+    prof_align, _ = profile_call(lambda: optimize(
+        loop_args["params"], edge, dyn, dataclasses.replace(cfg, niter=10),
+        *shape, **{**loop_args["kw"], "losses": None}))
+    del loop_args, edge, dyn
+    feats, poss = inference.encode_frames(model, imgs)
+    prof_decode, _ = profile_call(lambda: inference.decode_pairs(
+        model, feats, poss, ei, ej, HEIGHT, WIDTH))
+    del feats, poss
+    card = first_batch(model, dev)
+    m16 = AsymmetricCroCo3D(dataclasses.replace(DUST3R_LARGE_CONFIG,
+                                                dtype=torch.bfloat16))
+    load_reference_state_dict(m16, sd)
+    timing["bf16_trunk"] = timings(m16.to(dev))
+    card16 = first_batch(m16, dev)
+    del m16
+    torch.cuda.empty_cache()
+
+    # that batch on the CPU in float32: the card's float32 maps within
+    # STAGE1_CPU_BAR x max|CPU|; the bfloat16 trunk's within the JAX
+    # package's bf16 bars (tests/test_croco_model.py:165-170)
+    t1 = time.perf_counter()
+    cpu = first_batch(model.to("cpu"), "cpu")
+    cpu_s = time.perf_counter() - t1
+    del model
+    errs, bf16 = {}, {}
+    for v, (rc, rg, rb) in enumerate(zip(cpu, card, card16)):
+        for k in rc:
+            ref, got = rc[k].numpy(), rg[k].numpy()
+            if not (np.isfinite(got).all() and np.isfinite(rb[k]).all()):
+                raise AssertionError(f"non-finite {k} on the card")
+            scale = float(np.abs(ref).max())
+            errs[f"view{v + 1}_{k}"] = dict(
+                max_abs_err=float(np.abs(got - ref).max()), max_ref=scale,
+                rel=float(np.abs(got - ref).max()) / max(scale, 1e-30))
+        pts = "pts3d" if v == 0 else "pts3d_in_other_view"
+        bf16[f"view{v + 1}"] = dict(
+            dynamic_mask_mean_abs=float(
+                (rb["dynamic_mask"] - rc["dynamic_mask"]).abs().mean()),
+            pts3d_median_rel=float(((rb[pts] - rc[pts]).abs()
+                                    / (rc[pts].abs() + 1e-3)).median()))
+    worst = max(e["rel"] for e in errs.values())
+    if not worst <= STAGE1_CPU_BAR:
+        raise AssertionError(f"card against CPU {worst} x max|ref| > "
+                             f"{STAGE1_CPU_BAR}: {errs}")
+    for v, e in bf16.items():
+        if not (e["dynamic_mask_mean_abs"] < STAGE1_BF16_MASK_MEAN
+                and e["pts3d_median_rel"] < STAGE1_BF16_PTS_MEDIAN_REL):
+            raise AssertionError(f"bfloat16 trunk against the CPU, {v}: "
+                                 f"{e}")
+    niter = alignment.AlignerConfig().niter
+    emit("stage1", frames=STAGE1_FRAMES, height=HEIGHT, width=WIDTH,
+         graph=stats["graph"], edges=stats["n_edges"], n_params=n_params,
+         model_load_seconds=load_s,
+         peak_mem_gb=peak_gb, seconds=stats["total_s"],
+         load_frames_s=stats["load_s"], inference_s=stats["inference_s"],
+         align_s=stats["align_s"], save_s=stats["save_s"],
+         init_s=al["init_s"], to_device_s=al["to_device_s"],
+         align_loop_s=al["loop_s"],
+         align_ms_per_iter=al["loop_s"] * 1e3 / niter,
+         first_loss=al["first_loss"], last_loss=al["last_loss"],
+         focal=float(sc.focals[0]),
+         depth_range=[float(sc.depths.min()), float(sc.depths.max())],
+         dynamic_share=float(sc.dynamic_masks.mean()), timing=timing,
+         profile_align_10_iters=prof_align,
+         profile_decode_8_pairs=prof_decode,
+         tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                   cudnn=torch.backends.cudnn.allow_tf32),
+         card_vs_cpu_pairs=edges[:8], card_vs_cpu=errs,
+         card_vs_cpu_worst=worst, card_vs_cpu_bar=STAGE1_CPU_BAR,
+         bf16_vs_cpu=bf16, cpu_batch_seconds=cpu_s,
+         launches=launches, progress=progress)
+    return launches
+
+
+def phase_pipeline(sd, dev):
+    """``pipeline.run`` from a .pth written here: 8 frames at size 256,
+    stage 1 at DUST3R_LARGE_CONFIG, the bridge, 20 stage-2 iterations and
+    the renders; each stage's kernel launches."""
+    import math
+
+    import torch
+    from das3r_tpu_torch import pipeline
+    from das3r_tpu_torch.eval import render_tool
+    from das3r_tpu_torch.models.croco.dust3r import DUST3R_LARGE_CONFIG
+    from das3r_tpu_torch.models.croco.testkit import save_reference_checkpoint
+    from das3r_tpu_torch.train import scene_setup, trainer
+
+    frames = synthetic_frames("pipeline", PIPELINE_FRAMES, SEED + 13)
+    ckpt = WORK / "das3r_random.pth"
+    t0 = time.perf_counter()
+    save_reference_checkpoint(ckpt, sd, DUST3R_LARGE_CONFIG)
+    save_s = time.perf_counter() - t0
+    cfg = pipeline.PipelineConfig(ckpt=str(ckpt), iterations=PIPELINE_ITERS,
+                                  size=PIPELINE_SIZE)
+    progress = []
+    with _Timed(scene_setup, "build_scene") as probe, \
+            _Timed(trainer, "train_scene") as train, \
+            _Timed(render_tool, "render_sets") as render:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, launches = run_counted(lambda: pipeline.run(
+            str(frames), str(WORK / "pipeline"), cfg,
+            verbose=progress.append, device=dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+    if not math.isfinite(out["final_loss"]):
+        raise AssertionError(f"stage-2 loss {out['final_loss']}")
+    by_stage = {"probe": dict(probe.launches),
+                "train": dict(train.launches),
+                "render": dict(render.launches)}
+    want = {"probe": ("extract_windows", "window_blend_forward"),
+            "train": ("extract_chunks", "blend_forward", "blend_backward"),
+            "render": ("extract_chunks", "blend_forward")}
+    for stage, names in want.items():
+        for k in names:
+            if not by_stage[stage].get(k):
+                raise AssertionError(f"pipeline {stage}: {k} never "
+                                     f"launched: {by_stage}")
+    renders = sorted(Path(out["model_path"]).glob(
+        f"renders_{PIPELINE_ITERS}/*.png"))
+    if len(renders) != PIPELINE_FRAMES or not Path(out["video"]).exists():
+        raise AssertionError(f"{len(renders)} renders, video "
+                             f"{out['video']}")
+    stage1 = [x for x in progress if str(x).startswith("stage1")]
+    emit("pipeline", frames=PIPELINE_FRAMES, size=PIPELINE_SIZE,
+         iterations=PIPELINE_ITERS, seconds=seconds,
+         ckpt_save_seconds=save_s,
+         build_scene_seconds=probe.seconds,
+         train_scene_seconds=train.seconds,
+         render_sets_seconds=render.seconds,
+         final_loss=out["final_loss"], iters_per_sec=out["iters_per_sec"],
+         video=Path(out["video"]).name, launches=launches,
+         launches_by_stage=by_stage, stage1_progress=stage1)
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -1754,6 +2047,14 @@ def main() -> int:
         del bundle
         torch.cuda.empty_cache()
         gui = phase_gui(entry_model, "cuda")
+        torch.cuda.empty_cache()
+        sd, weights_s = stage1_weights()
+        emit("stage1_weights", seconds=weights_s,
+             n_params=sum(v.size for v in sd.values()))
+        stage1 = phase_stage1(sd, "cuda")
+        torch.cuda.empty_cache()
+        pipe = phase_pipeline(sd, "cuda")
+        del sd
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # serving runs the entry-stream forward kernels once per view and no
@@ -1773,7 +2074,9 @@ def main() -> int:
             f"trainer_entry_stream_{TRAINER_ITERS}_iters":
                 trainer["entry_stream"][k],
             f"trainer_window_{TRAINER_ITERS}_iters": trainer["window"][k],
-            "gui_24_panels": gui.get(k, 0)}
+            "gui_24_panels": gui.get(k, 0),
+            "stage1_16_frames": stage1[k],
+            f"pipeline_{PIPELINE_ITERS}_iters": pipe[k]}
         r["launches"] = sum(r["launches_by_path"].values())
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)

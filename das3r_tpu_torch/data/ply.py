@@ -132,8 +132,11 @@ def read_gaussians(path: str, max_sh_degree: int = 3):
     if len(rest_names) != 3 * n_rest:
         raise ValueError(f"{path}: {len(rest_names)} f_rest columns, "
                          f"SH degree {max_sh_degree} needs {3 * n_rest}")
-    f_rest = np.stack([d[k] for k in rest_names],
-                      -1).reshape(n, 3, n_rest).transpose(0, 2, 1)
+    if rest_names:
+        f_rest = np.stack([d[k] for k in rest_names],
+                          -1).reshape(n, 3, n_rest).transpose(0, 2, 1)
+    else:   # SH degree 0 (the JAX reader's np.stack fails here)
+        f_rest = np.zeros((n, 0, 3), d["x"].dtype)
     scaling = np.stack([d[f"scale_{i}"] for i in range(3)], -1)
     rotation = np.stack([d[f"rot_{i}"] for i in range(4)], -1)
     return dict(

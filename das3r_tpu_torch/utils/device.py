@@ -8,7 +8,14 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU: raise when CUDA is absent rather than carry
     on on the CPU. Any named device (``"cpu"``, ``"cuda:1"``) is taken as
-    given."""
+    given.
+
+    It also turns TF32 off for cuBLAS matmuls and cuDNN convolutions (the
+    latter is on by default): every entry point resolves its device here,
+    so the port computes in IEEE float32 as the JAX package's
+    ``precision="highest"`` does, and what is measured is what runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

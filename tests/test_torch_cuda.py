@@ -691,3 +691,80 @@ def test_viewer_panel_matches_plain_render(cuda):
         got = images[str(torch.device(cuda))][m]
         assert float(want.abs().max()) > 0, m
         assert float((got - want).abs().max()) <= BLEND_TOL, m
+
+
+@pytest.fixture
+def no_tf32():
+    """TF32 off in cuBLAS and cuDNN for the test (the repo's parity rule);
+    the previous settings restored after it."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def test_tiny_predictor_on_card_matches_cpu(cuda, no_tf32):
+    """The TINY stage-1 predictor on the card against the same weights on
+    the CPU, landscape and portrait, each map within 1e-4 x max|CPU|."""
+    from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
+    from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
+    from das3r_tpu_torch.models.croco.testkit import (TINY,
+                                                      random_torch_state_dict)
+    sd = random_torch_state_dict(TINY, np.random.default_rng(0))
+    models = {}
+    for dev in ("cpu", cuda):
+        models[str(dev)] = AsymmetricCroCo3D(TINY)
+        load_reference_state_dict(models[str(dev)], sd)
+        models[str(dev)].to(dev)
+    rng = np.random.default_rng(1)
+    i1, i2 = (torch.as_tensor(rng.standard_normal((2, 3, 32, 48)),
+                              dtype=torch.float32) for _ in range(2))
+    for portrait in (False, True):
+        with torch.no_grad():
+            want = models["cpu"](i1, i2, portrait1=portrait,
+                                 portrait2=portrait)
+            got = models[str(cuda)](i1.to(cuda), i2.to(cuda),
+                                    portrait1=portrait, portrait2=portrait)
+        for w, g in zip(want, got):
+            for k in w:
+                err = float((g[k].cpu() - w[k]).abs().max())
+                assert err <= 1e-4 * float(w[k].abs().max()), (k, err)
+
+
+def test_align_on_card_matches_cpu(cuda, no_tf32):
+    """Twelve alignment iterations on the card against the CPU on the same
+    noisy synthetic predictions (exact pointmaps of 5 views plus noise, a
+    symmetrized sliding-window graph, so PnP initializes some poses):
+    depths, poses and focals within 1e-5 x max|CPU|."""
+    from das3r_tpu_torch.predictor import alignment, pairs
+    rng = np.random.default_rng(3)
+    f, h, w = 5, 24, 32
+    focal, pp = 0.8 * w, np.asarray([w / 2, h / 2], np.float32)
+    depths = 4.0 + rng.uniform(-0.5, 0.5, (f, h, w))
+    c2w = np.tile(np.eye(4), (f, 1, 1))
+    c2w[1:, :3, 3] = rng.uniform(-0.25, 0.25, (f - 1, 3))
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+    cam = [np.concatenate([d[..., None] * (np.stack([xx, yy], -1) - pp)
+                           / focal, d[..., None]], -1) for d in depths]
+    world = [c @ p[:3, :3].T + p[:3, 3] for c, p in zip(cam, c2w)]
+    edges = pairs.make_pairs(f, "swin-2-noncyclic")
+    w2c = np.linalg.inv(c2w)
+
+    def in_frame(pts, i):
+        return (pts @ w2c[i, :3, :3].T + w2c[i, :3, 3]
+                + rng.normal(0, 0.02, pts.shape)).astype(np.float32)
+    pred_i = np.stack([in_frame(world[i], i) for i, _ in edges])
+    pred_j = np.stack([in_frame(world[j], i) for i, j in edges])
+    conf = rng.uniform(5, 15, (2, len(edges), h, w)).astype(np.float32)
+    mask = rng.uniform(0, 0.6, (len(edges), h, w)).astype(np.float32)
+    cfg = alignment.AlignerConfig(niter=12)
+    res = {str(dev): alignment.align(edges, pred_i, pred_j, conf[0],
+                                     conf[1], mask, cfg, device=dev)
+           for dev in ("cpu", cuda)}
+    for k in ("depths", "poses_c2w", "focals"):
+        want = getattr(res["cpu"], k)
+        err = np.abs(getattr(res[str(torch.device(cuda))], k) - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), (k, err)

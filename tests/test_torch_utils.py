@@ -115,6 +115,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_resolve_device_turns_tf32_off(monkeypatch):
+    """Every entry point resolves its device there, so each computes its
+    matmuls and convolutions in IEEE float32 (JAX's precision="highest")
+    whatever the process had set."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    resolve_device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     from das3r_tpu_torch.data import synthetic
     from das3r_tpu_torch.eval import render_tool
