@@ -60,7 +60,24 @@ failure:
    carries its per-tile work (entries per tile and each tile's longest
    pixel run: mean, max, the busiest SM's sum) and its blocks per SM,
    and how often its n_last agrees with the plain version's.
-12. window_parity: view 0 of that bundle at full size on the [T, K] window
+12. sharded: multi-device training on that bundle. First, in one
+   process, its view 0 as 2, 4 and 5 tile ranges (5 leaves 4 padded
+   tiles) through kernels A, B and C in their tile-range form: the
+   reassembled image bitwise the whole-image B's, the summed g_table
+   within 1e-6 x max|g| per column group of the whole-image C's, range 1
+   of 4 against the plain versions at the bars of phase 4; per range
+   count the layouts', B's and C's ``ms`` (all ranges in turn) and
+   ``device_ms`` (each range's kernel alone, summed) beside the
+   whole-image calls, and each range's bound. Then
+   ``parallel.sharded.make_sharded_train_step`` on two gloo ranks spawned
+   on the one card (NCCL refuses two ranks on a device), 3 steps of one
+   frame at (tile=2) and at (gauss=2), each against the port's unsharded
+   step on the same card at the CPU tests' bars (the loss within rel
+   1e-5, the first step's gradients within 2e-5 x max|g| per field, the
+   parameters within 2 lr per step); step ms (host clock after a
+   synchronize), ``comm_stats`` bytes a step per family, peak memory a
+   rank: two ranks on one card, not a scaling number.
+13. window_parity: view 0 of that bundle at full size on the [T, K] window
    path, K from the probe's largest tile (a multiple of 128, at most
    16384): ``extract_windows`` bitwise, ``window_blend_forward`` within
    2e-4 with ``tin``'s zero pattern the plain version's,
@@ -73,7 +90,7 @@ failure:
    final transmittance (bg = 0; the count of values that differ and the
    largest difference, within 2e-4) and the window-path image against
    the entry-stream image within 2e-4.
-13. split_table: view 0 of that bundle and view 0 of the random scene,
+14. split_table: view 0 of that bundle and view 0 of the random scene,
    each binned three ways on both raster branches: the full-width
    ``[N, D]`` table; the split ``[N, L] + [H_cap, D - L]`` table at the
    shape ``models/autosize.auto_split_table`` picks from the scene's probe
@@ -87,7 +104,7 @@ failure:
    rows' cells at index >= L. Prints each way's binning time (``ms`` and
    ``device_ms`` of the whole ``bin_entry_stream`` or ``bin_gaussians``
    call, medians of 10), the split shape and the slot counts.
-14. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
+15. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
    own copy of the bundle, 44 iterations each (4 epochs), densify with
    clone and split at 10, 20 and 30, an opacity reset at 30, a test
    report, a save and a checkpoint at 44: once on the entry stream, once
@@ -95,7 +112,7 @@ failure:
    parameters, that the loss of iterations 12-22 is below that of 1-11,
    the written PLY, pose npy, npz and test log, the npz read back equal,
    and which kernels each run launched.
-15. gui: ``das3r_tpu_torch.gui.ViewerScene.from_model_dir`` on the entry
+16. gui: ``das3r_tpu_torch.gui.ViewerScene.from_model_dir`` on the entry
    run's model (iteration 44) at the viewer's 480x320 on ``cuda``, and
    ``gui.server.make_server`` on 127.0.0.1 in a thread, answering real
    HTTP requests: ``/``, ``/state``, ``/render`` in modes rgb, confidence
@@ -106,7 +123,7 @@ failure:
    request times (host clock), the ``render_panel`` times (CUDA events)
    and the PLY load.
 
-16. stage1: ``das3r_tpu_torch.predictor.runner.run_scene`` at
+17. stage1: ``das3r_tpu_torch.predictor.runner.run_scene`` at
    DUST3R_LARGE_CONFIG (606M parameters, seeded random weights from the
    testkit's generator, std 0.02) on ``cuda``: a 16-frame synthetic video
    at 288x512, ``eval_scene_graph(16)`` (110 symmetrized edges), the
@@ -124,7 +141,7 @@ failure:
    bf16 bars (dynamic mask mean abs < 0.05, pts3d median relative < 0.1).
    The precision is the entry points' own (``utils/device.py::
    resolve_device`` turns TF32 off); the script sets none.
-17. pipeline: ``das3r_tpu_torch.pipeline.run`` from a ``.pth`` of the same
+18. pipeline: ``das3r_tpu_torch.pipeline.run`` from a ``.pth`` of the same
    weights that the phase writes with ``testkit.save_reference_checkpoint``
    (the predictor's config is read back from it): 8 frames at size
    256 (144x256), stage 1, ``rearrange``, ``build_scene``, 20 stage-2
@@ -133,9 +150,10 @@ failure:
    probe, A, B, C in training, A and B in the renders.
 
 Then the ``kernels`` line (A, B, C at the trainer scene with their
-random-scene numbers under ``random_scene``; D, E, F at the trainer
-scene; launches by path, the viewer's, stage 1's and the pipeline's
-included), the ``nvidia-smi`` line, and last the device line. Everything it
+random-scene numbers under ``random_scene``, B and C with their
+tile-range numbers under ``tile_range``; D, E, F at the trainer scene;
+launches by path, the viewer's, stage 1's, the pipeline's and the
+sharded steps' included), the ``nvidia-smi`` line, and last the device line. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -195,6 +213,12 @@ STAGE1_BF16_PTS_MEDIAN_REL = 0.1
 PIPELINE_FRAMES = 8
 PIPELINE_SIZE = 256          # 144x256 frames: build_scene's k-NN ~3 s
 PIPELINE_ITERS = 20
+SHARDED_RANGES = (2, 4, 5)   # tile ranges of view 0; 5 leaves 4 padded
+# x max|g| per column group: the ranges' summed g_table against the
+# whole-image C (both add with atomics, in orders that differ)
+RANGE_GRAD_TOL = 1e-6
+SHARDED_STEPS = 3
+SHARDED_TIMEOUT = 240        # s, both ranks, start-up included
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -1123,6 +1147,398 @@ def phase_trainer_entry_parity(bundle, dev):
     return results
 
 
+def range_rows(x, tile0: int, t_loc: int):
+    """Rows [tile0, tile0 + t_loc) of a per-tile tensor, zero past its
+    end (a range's padded tail)."""
+    import torch
+    out = torch.zeros((t_loc,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    k = max(min(t_loc, x.shape[0] - tile0), 0)
+    out[:k] = x[tile0:tile0 + k]
+    return out
+
+
+def sharded_tile_ranges(bundle, dev) -> dict:
+    """View 0 of the trainer's bundle blended as 2, 4 and 5 tile ranges by
+    kernels B and C in their tile-range form, in one process: the
+    reassembled image against the whole-image B (bitwise), the summed
+    g_table against the whole-image C (``RANGE_GRAD_TOL`` x max|g| per
+    column group), one range of 4 against the plain versions (the bars of
+    ``entry_kernel_parity``); per range count the layouts', B's and C's
+    times (``ms``: all ranges in turn; ``device_ms``: the sum of each
+    range's kernel alone) beside the whole-image calls, and each range's
+    bound."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.ops.splat import binning, entry_blend
+    from das3r_tpu_torch.ops.splat.rasterize import (range_capacity,
+                                                     range_tiles)
+
+    s = bundle.settings
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, s, dev)
+    n = prep.depth.shape[0]
+    n_tiles, P = s.n_tiles, s.tile * s.tile
+    ks = binning._sorted_key_stream(prep, s)
+    es = binning.entry_stream_from_keys(ks, s, n,
+                                        binning.entry_stream_cap(s, n))
+    attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                      prep.opacity[:, None]], 1)
+    table = torch.cat([attr[es.order], torch.zeros_like(attr[:1])]
+                      ).contiguous()
+    del prep, attr
+    gen = np.random.default_rng(SEED + 9)
+    g_cpre = torch.as_tensor(gen.normal(size=(n_tiles, 3, P)).astype(
+        np.float32), device=dev)
+    g_tfinal = torch.as_tensor(gen.normal(size=(n_tiles, 1, P)).astype(
+        np.float32), device=dev)
+
+    def fwd(e, **rng):
+        return entry_blend.blend_forward(table, e.rank, e.astart, e.count,
+                                         s, True, **rng)
+
+    def bwd(e, tfinal, n_last, gc, gt, **rng):
+        return entry_blend.blend_backward(table, e.rank, e.astart, e.count,
+                                          s, tfinal, n_last, gc, gt, **rng)
+
+    cpre, tfinal, n_last = fwd(es)
+    g_whole = bwd(es, tfinal, n_last, g_cpre, g_tfinal)
+    # per-tile work for the bounds: each tile's pixel-entry evaluations
+    # (plain forward) and its longest pixel run
+    n_eval = entry_blend.blend_forward_plain(table, es.rank, es.astart,
+                                             es.count, s).n_eval
+    torch.cuda.synchronize()
+
+    def b_bound(e, ev, need):
+        _, pre = prefix_bytes(e, need, entry_blend.N_ATTR * 4)
+        # astart and count in; cpre, tfinal and n_last out
+        nbytes = pre + e.count.numel() * 8 + e.count.numel() * P * 5 * 4
+        evals = int(ev.sum())
+        return bound(nbytes, max(evals * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+                                 evals / SFU_OPS_PER_S))
+
+    def c_bound(e, nl):
+        _, pre = prefix_bytes(e, nl.amax(1).long(), entry_blend.N_ATTR * 4)
+        # n_last, tfinal and the four cotangents in; g_table out
+        nbytes = (pre + e.count.numel() * 8 + nl.numel() * 6 * 4
+                  + table.numel() * 4)
+        evals = int(nl.sum())
+        return bound(nbytes, max(
+            evals * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+            evals * BLEND_BWD_SFU_PER_EVAL / SFU_OPS_PER_S))
+
+    whole = dict(
+        b_ms=time_ms(lambda: fwd(es)),
+        b_device_ms=device_ms(lambda: fwd(es),
+                              "blend_forward_kernel")["device_ms"],
+        c_ms=time_ms(lambda: bwd(es, tfinal, n_last, g_cpre, g_tfinal)),
+        c_device_ms=device_ms(lambda: bwd(es, tfinal, n_last, g_cpre,
+                                          g_tfinal),
+                              "blend_backward_kernel")["device_ms"],
+        b_bound_ms=b_bound(es, n_eval, n_eval.amax(1))[0],
+        c_bound_ms=c_bound(es, n_last)[0])
+    out = {"whole": whole}
+    cap = range_capacity(s, n)
+    for n_ranges in SHARDED_RANGES:
+        t_loc = range_tiles(s, n_ranges)
+        tile0s = [i * t_loc for i in range(n_ranges)]
+
+        def layouts():
+            return [binning.entry_stream_from_keys(ks, s, n, cap, t0, t_loc)
+                    for t0 in tile0s]
+
+        streams = layouts()
+        runs = []
+        for t0, e in zip(tile0s, streams):
+            rng = dict(tile0=t0, n_tiles_out=t_loc)
+            cp, tf, nl = fwd(e, **rng)
+            cot = (range_rows(g_cpre, t0, t_loc),
+                   range_rows(g_tfinal, t0, t_loc))
+            runs.append((e, rng, cp, tf, nl, cot))
+        g_sum = torch.zeros_like(table)
+        for e, rng, cp, tf, nl, cot in runs:
+            g_sum += bwd(e, tf, nl, *cot, **rng)
+        torch.cuda.synchronize()
+        cp_all = torch.cat([r[2] for r in runs])[:n_tiles]
+        tf_all = torch.cat([r[3] for r in runs])[:n_tiles]
+        if not (torch.equal(cp_all, cpre) and torch.equal(tf_all, tfinal)):
+            raise AssertionError(
+                f"{n_ranges} ranges: the reassembled image differs from "
+                f"the whole-image B on "
+                f"{int((cp_all != cpre).sum() + (tf_all != tfinal).sum())} "
+                f"values")
+        rel = {k: float((g_sum[:, c] - g_whole[:, c]).abs().max()
+                        / g_whole[:, c].abs().max())
+               for k, c in GROUPS.items()}
+        if not max(rel.values()) <= RANGE_GRAD_TOL:
+            raise AssertionError(f"{n_ranges} ranges: summed g_table err / "
+                                 f"max|g| {rel} > {RANGE_GRAD_TOL}")
+        per_range = []
+        for t0, (e, rng, cp, tf, nl, cot) in zip(tile0s, runs):
+            b_ms, b_by = b_bound(e, range_rows(n_eval, t0, t_loc),
+                                 range_rows(n_eval.amax(1), t0, t_loc))
+            c_ms, c_by = c_bound(e, nl)
+            per_range.append(dict(
+                tile0=t0, entries=int(e.count.sum()),
+                b_device_ms=device_ms(lambda e=e, rng=rng: fwd(e, **rng),
+                                      "blend_forward_kernel")["device_ms"],
+                c_device_ms=device_ms(
+                    lambda e=e, rng=rng, tf=tf, nl=nl, cot=cot: bwd(
+                        e, tf, nl, *cot, **rng),
+                    "blend_backward_kernel")["device_ms"],
+                b_bound_ms=b_ms, b_bound_by=b_by, c_bound_ms=c_ms,
+                c_bound_by=c_by))
+        res = dict(
+            t_loc=t_loc, padded_tiles=n_ranges * t_loc - n_tiles,
+            capacity=cap, layout_ms=time_ms(layouts),
+            b_ms=time_ms(lambda: [fwd(r[0], **r[1]) for r in runs]),
+            c_ms=time_ms(lambda: [bwd(r[0], r[3], r[4], *r[5], **r[1])
+                                  for r in runs]),
+            b_device_ms=sum(r["b_device_ms"] for r in per_range),
+            c_device_ms=sum(r["c_device_ms"] for r in per_range),
+            g_table_err_over_max_g=rel, image_bitwise=True,
+            per_range=per_range)
+        if n_ranges == 4:      # one range against the plain versions
+            e, rng, cp, tf, nl, cot = runs[1]
+            plain = entry_blend.blend_forward_plain(
+                table, e.rank, e.astart, e.count, s, **rng)
+            want = entry_blend.blend_backward_plain(
+                table, e.rank, e.astart, e.count, s, plain.tfinal,
+                plain.tin, *cot, **rng).g_table
+            g_one = bwd(e, tf, nl, *cot, **rng)
+            torch.cuda.synchronize()
+            b_err = max(float((cp - plain.cpre).abs().max()),
+                        float((tf - plain.tfinal).abs().max()))
+            c_rel = {k: float((g_one[:, c] - want[:, c]).abs().max()
+                              / want[:, c].abs().max())
+                     for k, c in GROUPS.items()}
+            if not (b_err <= BLEND_TOL and max(c_rel.values()) <= GRAD_TOL):
+                raise AssertionError(
+                    f"range 1 of 4 against the plain versions: B {b_err} "
+                    f"(bar {BLEND_TOL}), C err / max|g| {c_rel} (bar "
+                    f"{GRAD_TOL})")
+            res.update(plain_range=1, b_max_abs_err=b_err,
+                       c_err_over_max_g=c_rel)
+        out[f"ranges_{n_ranges}"] = res
+    return out
+
+
+def sharded_rank(rank: int, work: str, device: str) -> None:
+    """One of the two ranks of ``sharded_steps``, in a process of its own
+    on ``device`` (``cuda``: both ranks on card 0): for the meshes (tile=2) and (gauss=2), the port's
+    unsharded step (world size 1) and the sharded step, each
+    ``SHARDED_STEPS`` steps of one frame from the scene's state; the
+    sharded run against the unsharded one at the CPU tests' bars (the
+    loss within rel 1e-5 each step, the first step's gradients within
+    2e-5 x max|g| per field, the parameters within 2 lr per step taken).
+    Writes ``rank<r>.json``; raises on a failed bar."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from das3r_tpu_torch.models.gaussians import (GaussianMeta,
+                                                  GaussianParams, PoseParams)
+    from das3r_tpu_torch.ops.splat import RasterSettings
+    from das3r_tpu_torch.parallel import comm_stats, make_mesh, multihost
+    from das3r_tpu_torch.parallel import sharded
+    from das3r_tpu_torch.train import optim
+    from das3r_tpu_torch.train import step as step_mod
+    from das3r_tpu_torch.train.config import OptimizationConfig
+
+    work = Path(work)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    backend = multihost.initialize_distributed(
+        f"file://{work / 'store'}", 2, rank, device=device)
+    try:
+        scene = torch.load(work / "scene.pt")
+        settings = RasterSettings(**scene["settings"])
+        cfg = OptimizationConfig()
+        gts = scene["gts"].to(dev)
+        fovx, fovy = scene["fovx"], scene["fovy"]
+        bg = torch.zeros(3, device=dev)
+
+        def fresh(mesh, gauss_axis):
+            """The scene's state, copied: the steps update it in place."""
+            params, poses, meta = (
+                cls(**{k: v.to(dev, copy=True) for k, v in
+                       scene[name].items()})
+                for cls, name in ((GaussianParams, "params"),
+                                  (PoseParams, "poses"),
+                                  (GaussianMeta, "meta")))
+            state = step_mod.init_train_state(params, poses)
+            if gauss_axis:
+                state = sharded.shard_state(state, mesh)
+                meta = sharded.shard_meta(meta, mesh)
+            return state, meta
+
+        def run(mesh, gauss_axis):
+            state, meta = fresh(mesh, gauss_axis)
+            step = sharded.make_sharded_train_step(
+                mesh, settings, cfg, gauss_axis=gauss_axis, device=dev)
+            losses, ms, comm, first = [], [], [], None
+            counted = kernel_counters()
+            for f in counted.values():
+                f.launches = 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            for k in range(SHARDED_STEPS):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with comm_stats.CommStats() as stats:
+                    g_p, g_q, st = step.loss_and_grads(
+                        state, meta, [k], gts[k:k + 1], fovx[k:k + 1],
+                        fovy[k:k + 1], bg)
+                    m = step.update(state, g_p, g_q, st)
+                if on_card:
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m.loss))
+                comm.append(stats.families())
+                if first is None:
+                    first = (g_p, g_q)
+            return dict(state=state, first=first, losses=losses, ms=ms,
+                        comm=comm, launches={name: f.launches for name, f
+                                             in counted.items()},
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30
+                        if on_card else None)
+
+        out = dict(rank=rank, backend=backend,
+                   note="two ranks on one card: not a scaling number")
+        for name, kw, gauss_axis in (("tile_2", dict(tile=2), None),
+                                     ("gauss_2", dict(gauss=2), "gauss")):
+            mesh = make_mesh(**kw)
+            ref = run(make_mesh(world_size=1), None)
+            got = run(mesh, gauss_axis)
+            rows = (sharded.gauss_rows(mesh, ref["state"].params.xyz.shape[0])
+                    if gauss_axis else slice(None))
+
+            def part(k, x):
+                return x[rows] if k in sharded.GAUSSIAN_FIELDS else x
+
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(got["losses"], ref["losses"]))
+            grad_rel = {}
+            for g_got, g_ref in zip(got["first"], ref["first"]):
+                for f in dataclasses.fields(g_ref):
+                    w = part(f.name, getattr(g_ref, f.name))
+                    g = getattr(g_got, f.name)
+                    grad_rel[f.name] = float(
+                        (g - w).abs().max() / (w.abs().max() + 1e-30))
+            lrs = [optim.gaussian_lrs(j + 1, cfg, 1.0)
+                   for j in range(SHARDED_STEPS)]
+            cams = [optim.camera_lrs(j + 1, cfg)
+                    for j in range(SHARDED_STEPS)]
+            param_over_lr = {}
+            for group, lr_list in (("params", lrs), ("poses", cams)):
+                for f in dataclasses.fields(getattr(ref["state"], group)):
+                    bar = 2 * sum(float(getattr(lr, f.name))
+                                  for lr in lr_list) + 1e-7
+                    w = part(f.name, getattr(getattr(ref["state"], group),
+                                             f.name))
+                    d = getattr(getattr(got["state"], group), f.name) - w
+                    param_over_lr[f.name] = float(d.detach().abs().max()) / bar
+            res = dict(
+                mesh=mesh.shape, rows=[rows.start, rows.stop]
+                if gauss_axis else None,
+                losses=got["losses"], ref_losses=ref["losses"],
+                loss_rel_err=loss_rel, grad_err_over_max_g=grad_rel,
+                param_diff_over_bar=param_over_lr,
+                step_ms=got["ms"], ref_step_ms=ref["ms"],
+                comm_per_step=got["comm"], launches=got["launches"],
+                ref_launches=ref["launches"],
+                peak_mem_gb=got["peak_mem_gb"],
+                ref_peak_mem_gb=ref["peak_mem_gb"])
+            out[name] = res
+            if not (loss_rel <= 1e-5 and max(grad_rel.values()) <= GRAD_TOL
+                    and max(param_over_lr.values()) <= 1.0):
+                raise AssertionError(f"rank {rank}, {name}: {res}")
+            del ref, got
+            if on_card:
+                torch.cuda.empty_cache()
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_steps(bundle, dev) -> list[dict]:
+    """``parallel.sharded.make_sharded_train_step`` on the trainer's scene
+    in two gloo processes that share ``dev`` (``cuda``: card 0;
+    ``sharded_rank``), spawned after the kernels are built; each rank's
+    results."""
+    import dataclasses
+
+    import torch
+    import torch.multiprocessing as mp
+
+    work = WORK / "sharded"
+    work.mkdir(parents=True)
+
+    def cpu(group):
+        return {f.name: getattr(group, f.name).detach().cpu()
+                for f in dataclasses.fields(group)}
+
+    data = bundle.train_data
+    torch.save(dict(params=cpu(bundle.params), meta=cpu(bundle.meta),
+                    poses=cpu(bundle.poses),
+                    gts=torch.as_tensor(data.images[:SHARDED_STEPS]),
+                    fovx=torch.as_tensor(data.fovx[:SHARDED_STEPS]),
+                    fovy=torch.as_tensor(data.fovy[:SHARDED_STEPS]),
+                    settings=dataclasses.asdict(bundle.settings)),
+               work / "scene.pt")
+    ctx = mp.start_processes(sharded_rank, args=(str(work), str(dev)),
+                             nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    while not ctx.join(timeout=5):      # raises on a rank's failure
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            for proc in ctx.processes:
+                proc.join(10)
+            raise AssertionError(f"the sharded ranks ran past "
+                                 f"{SHARDED_TIMEOUT} s")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def range_fields(ranges: dict, key: str) -> dict:
+    """Kernel B's (``key`` "b") or C's ("c") tile-range numbers for the
+    kernels line: per range count, all ranges' ``ms`` and ``device_ms``
+    and the largest bound of one range."""
+    return {name: dict(ms=v[f"{key}_ms"], device_ms=v[f"{key}_device_ms"],
+                       one_range_bound_ms=max(x[f"{key}_bound_ms"]
+                                              for x in v["per_range"]))
+            for name, v in ranges.items() if name != "whole"}
+
+
+def phase_sharded(bundle, dev):
+    """Multi-device training on the trainer's scene: its view 0 as tile
+    ranges in one process (``sharded_tile_ranges``), then the sharded
+    step on two ranks sharing the card (``sharded_steps``). Returns the
+    tile-range results and the sharded steps' launches of each kernel,
+    summed over the ranks."""
+    import torch
+    t0 = time.perf_counter()
+    ranges = sharded_tile_ranges(bundle, dev)
+    ranges_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ranks = sharded_steps(bundle, dev)
+    launches = collections.Counter()
+    for r in ranks:
+        for mesh in ("tile_2", "gauss_2"):
+            launches.update(r[mesh]["launches"])
+    for name in ("extract_chunks", "blend_forward", "blend_backward"):
+        if launches[name] != 4 * SHARDED_STEPS:
+            raise AssertionError(f"the sharded steps launched {name} "
+                                 f"{launches[name]} times")
+    emit("sharded", seconds=time.perf_counter() - t0,
+         tile_ranges_seconds=ranges_s, tile_ranges=ranges,
+         sharded_step=ranks, launches=dict(launches))
+    return ranges, launches
+
+
 def phase_window_parity(bundle, k_probe: int, dev):
     """Kernels D, E, F against their plain versions on view 0 of the
     trainer's bundle at full size, with K from the probe."""
@@ -1569,9 +1985,9 @@ def phase_gui(model: Path, dev):
     orbit = app.orbit
     plain_chunks = binning.extract_chunks_plain
 
-    def plain_blend(table, rank, astart, count, settings):
+    def plain_blend(table, rank, astart, count, settings, **tile_range):
         out = entry_blend.blend_forward_plain(table, rank, astart, count,
-                                              settings)
+                                              settings, **tile_range)
         return out.cpre, out.tfinal
 
     parity, panel_ms = {}, {}
@@ -2040,6 +2456,12 @@ def main() -> int:
             r["random_scene"] = {k: r_random[k] for k in SUMMARY_KEYS
                                  if k in r_random}
         torch.cuda.empty_cache()
+        ranges, sharded = phase_sharded(bundle, "cuda")
+        for r in results:
+            key = {"blend_forward": "b", "blend_backward": "c"}.get(r["name"])
+            if key:
+                r["tile_range"] = range_fields(ranges, key)
+        torch.cuda.empty_cache()
         results += phase_window_parity(bundle, k_probe, "cuda")
         torch.cuda.empty_cache()
         phase_split_table(bundle, probe_stats, model, data, settings, "cuda")
@@ -2076,7 +2498,8 @@ def main() -> int:
             f"trainer_window_{TRAINER_ITERS}_iters": trainer["window"][k],
             "gui_24_panels": gui.get(k, 0),
             "stage1_16_frames": stage1[k],
-            f"pipeline_{PIPELINE_ITERS}_iters": pipe[k]}
+            f"pipeline_{PIPELINE_ITERS}_iters": pipe[k],
+            f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0)}
         r["launches"] = sum(r["launches_by_path"].values())
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)

@@ -31,6 +31,11 @@
 // lists, so the atomics rarely collide; their order varies from run to run,
 // so the result varies in its last bits.
 //
+// As in blend_forward.cu, a launch covers n_tiles tiles from global tile
+// tile0 on: block t takes its pixel coordinates from tile tile0 + t and
+// reads and writes every per-tile and per-pixel array at t alone. A tile
+// past the image has count 0 and n_last 0, so it returns at once.
+//
 // Bound on the H100: operations, ~55 FP32 and an exp and a reciprocal per
 // seen pixel-entry; the bytes are the table rows, ranks and per-pixel
 // vectors, read once per block. The design before this one reduced the
@@ -67,8 +72,8 @@ __global__ void __launch_bounds__(kPix, 5)
 blend_backward_kernel(const float* __restrict__ table,
                       const int32_t* __restrict__ rank,
                       const int32_t* __restrict__ astart,
-                      const int32_t* __restrict__ count, int tiles_x,
-                      float alpha_clip, float alpha_floor,
+                      const int32_t* __restrict__ count, int tile0,
+                      int tiles_x, float alpha_clip, float alpha_floor,
                       const float* __restrict__ tfinal,
                       const int32_t* __restrict__ n_last,
                       const float* __restrict__ g_cpre,
@@ -81,9 +86,10 @@ blend_backward_kernel(const float* __restrict__ table,
   float* s_attr = s_g + 3 * kPix;              // [kNB][kAttrPad]
   int32_t* s_rank = (int32_t*)(s_attr + kNB * kAttrPad);  // [kNB]
   __shared__ int s_end;
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;   // local tile: the rows it reads and writes
+  const int tg = tile0 + t;   // global tile: its pixel coordinates
   const int p = threadIdx.x;
-  const int tx0 = (t % tiles_x) * kTile, ty0 = (t / tiles_x) * kTile;
+  const int tx0 = (tg % tiles_x) * kTile, ty0 = (tg / tiles_x) * kTile;
   const float px = (float)(tx0 + p % kTile);
   const float py = (float)(ty0 + p / kTile);
   const int64_t beg = astart[t];
@@ -193,7 +199,7 @@ blend_backward_kernel(const float* __restrict__ table,
 
 extern "C" int blend_backward_launch(const void* table, const void* rank,
                                      const void* astart, const void* count,
-                                     int n_tiles, int tiles_x,
+                                     int n_tiles, int tile0, int tiles_x,
                                      float alpha_clip, float alpha_floor,
                                      const void* tfinal, const void* n_last,
                                      const void* g_cpre, const void* g_tfinal,
@@ -201,7 +207,7 @@ extern "C" int blend_backward_launch(const void* table, const void* rank,
   if (n_tiles == 0) return 0;
   blend_backward_kernel<<<n_tiles, kPix, kSharedBytes, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
-      (const int32_t*)count, tiles_x, alpha_clip, alpha_floor,
+      (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor,
       (const float*)tfinal, (const int32_t*)n_last, (const float*)g_cpre,
       (const float*)g_tfinal, (float*)g_table);
   return (int)cudaGetLastError();

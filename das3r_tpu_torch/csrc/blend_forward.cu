@@ -65,6 +65,13 @@
 // The table is [N + 1, 9] f32 in depth order. Pads in a tile's 128-aligned
 // range hold rank N, the zero row; no rank past count[t] is read, and no
 // entry past it blended.
+//
+// A launch blends n_tiles tiles from global tile tile0 on (the tile-sharded
+// render blends one range per launch; the whole image is tile0 = 0). Block
+// t takes its pixel coordinates from tile tile0 + t; count, astart, the
+// outputs and n_last are indexed by t alone, local to the range. A tile
+// past the image (the padded tail of the last range) has count 0, so it
+// reads nothing and writes (0, 1).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,15 +96,17 @@ __global__ void __launch_bounds__(kThreads)
 blend_forward_kernel(const float* __restrict__ table,
                      const int32_t* __restrict__ rank,
                      const int32_t* __restrict__ astart,
-                     const int32_t* __restrict__ count, int tiles_x,
-                     float alpha_clip, float alpha_floor, float eps,
+                     const int32_t* __restrict__ count, int tile0,
+                     int tiles_x, float alpha_clip, float alpha_floor,
+                     float eps,
                      float* __restrict__ cpre, float* __restrict__ tfinal,
                      int32_t* __restrict__ n_last) {
   __shared__ __align__(16) float s_attr[kNB * kAttrPad];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;   // local tile: the rows it reads and writes
+  const int tg = tile0 + t;   // global tile: its pixel coordinates
   const int q = threadIdx.x;  // pixels q and q + kThreads of the tile
-  const float px = (float)((t % tiles_x) * kTile + q % kTile);
-  const float py0 = (float)((t / tiles_x) * kTile + q / kTile);
+  const float px = (float)((tg % tiles_x) * kTile + q % kTile);
+  const float py0 = (float)((tg / tiles_x) * kTile + q / kTile);
   const float py1 = py0 + (float)(kThreads / kTile);
   const int32_t* rank_t = rank + astart[t];
   const int cnt = count[t];
@@ -186,15 +195,15 @@ blend_forward_kernel(const float* __restrict__ table,
 
 extern "C" int blend_forward_launch(const void* table, const void* rank,
                                     const void* astart, const void* count,
-                                    int n_tiles, int tiles_x, float alpha_clip,
-                                    float alpha_floor, float eps, void* cpre,
-                                    void* tfinal, void* n_last,
-                                    void* stream) {
+                                    int n_tiles, int tile0, int tiles_x,
+                                    float alpha_clip, float alpha_floor,
+                                    float eps, void* cpre, void* tfinal,
+                                    void* n_last, void* stream) {
   auto kernel = n_last != nullptr ? blend_forward_kernel<true>
                                   : blend_forward_kernel<false>;
   kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
-      (const int32_t*)count, tiles_x, alpha_clip, alpha_floor, eps,
+      (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor, eps,
       (float*)cpre, (float*)tfinal, (int32_t*)n_last);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,7 @@ from das3r_tpu_torch.models.gaussians import (
     GaussianMeta, GaussianParams, activated_opacity, activated_scaling,
     per_gaussian_conf)
 from das3r_tpu_torch.ops.splat import RasterSettings, rasterize
+from das3r_tpu_torch.parallel import collectives
 from das3r_tpu_torch.utils import transforms
 from das3r_tpu_torch.utils.device import on_device, resolve_device
 from das3r_tpu_torch.utils.quat import pose_to_w2c, quat_mul
@@ -64,9 +65,20 @@ def render(
     capture_mean2d_grad: bool = False,
     mean2d_offset=None,
     device=None,
+    tile_group=None,
+    gauss_group=None,
 ) -> RenderOutput:
     """One render of the scene from ``camera_pose`` on ``device`` (default
     CUDA; a RuntimeError without it).
+
+    ``tile_group`` / ``gauss_group``: the process groups of the mesh's
+    tile and Gaussian axes (JAX's ``tile_axis``, ``gauss_axis`` and
+    ``mesh``; ``parallel/mesh.py``). With ``gauss_group``, ``params``'
+    per-Gaussian fields and ``meta`` are this rank's slice; the pose, the
+    FoV and ``conf_static`` are whole on every rank, and since each rank
+    uses them for its own Gaussians, their gradients are summed over the
+    group (``collectives.sum_grads``). Either way the image is whole on
+    every rank.
 
     mode='train'      opacity *= conf_static gathered per Gaussian
     mode='test'       opacity *= ``conf_per_gaussian``
@@ -79,6 +91,13 @@ def render(
     meta = GaussianMeta(**{f.name: getattr(meta, f.name).to(dev)
                            for f in dataclasses.fields(meta)})
     camera_pose = on_device(camera_pose, dev)
+    if collectives.size(gauss_group) > 1:
+        fovx, fovy, conf = (
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (fovx, fovy, params.conf_static))
+        camera_pose, fovx, fovy, conf = collectives.sum_grads(
+            gauss_group, "replicated_grads", camera_pose, fovx, fovy, conf)
+        params = dataclasses.replace(params, conf_static=conf)
     # Dead capacity slots: a degenerate stored quaternion would inject NaN
     # into the backward through quat normalization.
     safe_rot = torch.where(
@@ -127,6 +146,7 @@ def render(
         tan_fovx=tfx, tan_fovy=tfy,
         shs=shs, colors_precomp=colors_precomp,
         scales=activated_scaling(params), rotations=rot_cam,
-        mean2d_offset=offset, device=dev)
+        mean2d_offset=offset, device=dev, tile_group=tile_group,
+        gauss_group=gauss_group)
     return RenderOutput(image=img, radii=radii,
                         mean2d_grad_capture=offset, aux=aux)

@@ -201,9 +201,10 @@ def _sorted_key_stream(prep: Preprocessed,
 class EntryStream(NamedTuple):
     """128-aligned variable-length per-tile entry stream (no K cap)."""
     rank: torch.Tensor        # [E_al] int32 depth rank per slot; n on pads
-    chunk_tile: torch.Tensor  # [E_al/128] int32 owning tile (n_tiles: void)
+    chunk_tile: torch.Tensor  # [E_al/128] int32 owning (local) tile; void:
+                              # the range's tile count
     order: torch.Tensor       # [N] int64 depth rank -> gaussian index
-    count: torch.Tensor       # [T] int32 live entries per tile
+    count: torch.Tensor       # [T] int32 live entries per (local) tile
     astart: torch.Tensor      # [T] int32 first slot of each tile's segment
     dup_overflow: torch.Tensor
     entry_overflow: torch.Tensor
@@ -246,6 +247,10 @@ def extract_chunks(keys: torch.Tensor, src0: torch.Tensor,
                    nlive: torch.Tensor, nbits: int, n: int) -> torch.Tensor:
     """Stream chunk gather fused with the rank decode.
 
+    It reads only ``src0`` and ``nlive``, which ``chunk_layout`` computes
+    for the range it lays out, so a tile range's stream needs no other
+    form of the kernel.
+
     Replaces the TPU kernel ``das3r_tpu/ops/splat/binning.py::
     _extract_chunks_pallas`` (whose row-DMA-and-roll exists only because
     Mosaic cannot DMA at an element offset). On the H100 it is bound by
@@ -277,26 +282,33 @@ extract_chunks.launches = 0
 
 
 class ChunkLayout(NamedTuple):
-    """Where each 128-slot chunk of the stream reads its keys."""
-    chunk_tile: torch.Tensor   # [n_chunks] int32 owning tile (n_tiles: void)
+    """Where each 128-slot chunk of the stream reads its keys. Tile ids
+    are local to the laid-out range: local tile t is global tile
+    tile0 + t."""
+    chunk_tile: torch.Tensor   # [n_chunks] int32 owning tile (t_loc: void)
     src0: torch.Tensor         # [n_chunks] int64 sorted-key index of slot 0
     nlive: torch.Tensor        # [n_chunks] int32 live slots of the chunk
-    count: torch.Tensor        # [T] int64 live entries per tile
-    astart: torch.Tensor       # [T] int64 first slot of each tile's segment
+    count: torch.Tensor        # [t_loc] int64 live entries per tile
+    astart: torch.Tensor       # [t_loc] int64 first slot of each segment
     stream_drop: torch.Tensor  # [] entries cut by the stream capacity
 
 
 def chunk_layout(keys: torch.Tensor, nbits: int, settings: RasterSettings,
-                 e_al: int | None = None) -> ChunkLayout:
+                 e_al: int | None = None, tile0: int = 0,
+                 t_loc: int | None = None) -> ChunkLayout:
     """Per-tile segments and per-chunk key sources of the 128-aligned
-    stream over sorted ``keys``. ``e_al=None`` sizes the stream from the
-    counts (at least one chunk)."""
+    stream over sorted ``keys``, for tiles [tile0, tile0 + t_loc) (default:
+    the whole image). ``e_al=None`` sizes the stream from the counts (at
+    least one chunk). Tile ids past the image (the padded tail of the last
+    range) clamp to the image's end, so their segments are empty."""
     s = settings
-    t_loc = s.n_tiles
+    if t_loc is None:
+        t_loc = s.n_tiles
     dev = keys.device
 
-    boundaries = torch.arange(t_loc + 1, dtype=torch.int64,
-                              device=dev) << nbits
+    boundaries = torch.clamp_max(
+        tile0 + torch.arange(t_loc + 1, dtype=torch.int64, device=dev),
+        s.n_tiles) << nbits
     bounds = torch.searchsorted(keys, boundaries)
     start = bounds[:-1]
     count_raw = bounds[1:] - start                           # uncapped
@@ -337,10 +349,14 @@ def chunk_layout(keys: torch.Tensor, nbits: int, settings: RasterSettings,
 
 
 def entry_stream_from_keys(ks: SortedKeyStream, settings: RasterSettings,
-                           n: int, e_al: int | None = None) -> EntryStream:
-    """Lay out the 128-aligned entry stream from a sorted key stream.
+                           n: int, e_al: int | None = None, tile0: int = 0,
+                           t_loc: int | None = None) -> EntryStream:
+    """Lay out the 128-aligned entry stream of tiles [tile0, tile0 + t_loc)
+    (default: the whole image) from a sorted key stream, with local tile
+    ids (``chunk_tile``, ``count``, ``astart``; void chunks hold t_loc).
     ``e_al=None`` sizes it from the counts (at least one chunk)."""
-    lay = chunk_layout(ks.sorted_packed, ks.nbits, settings, e_al)
+    lay = chunk_layout(ks.sorted_packed, ks.nbits, settings, e_al, tile0,
+                       t_loc)
     rank = extract_chunks(ks.sorted_packed, lay.src0, lay.nlive, ks.nbits, n)
     return EntryStream(rank=rank, chunk_tile=lay.chunk_tile, order=ks.order,
                        count=lay.count.to(torch.int32),

@@ -20,6 +20,15 @@ color and opacity. Two versions, as for the forward:
   last contributing entry (``n_last``, saved by the forward kernel) and
   restores T before each entry from T_final by division.
 
+A call may blend one range of tiles instead of the whole image (the
+tile-sharded render, ``rasterize.render_range``): ``tile0`` is the global
+index of its first tile and ``n_tiles_out`` its tile count. The stream's
+per-tile arrays (``astart``, ``count``) and every output row are local to
+the range; only the pixel coordinates come from the global tile grid, as
+in the JAX kernels (``_pixel_coords(s, tile0 + tid)``). A tile past the
+image, in the padded tail of the last range, has count 0 and gives
+(cpre, tfinal) = (0, 1).
+
 Attribute columns of the table:
     0: mean2d_x  1: mean2d_y  2: conic_xx  3: conic_xy  4: conic_yy
     5: color_r   6: color_g   7: color_b   8: opacity
@@ -54,12 +63,14 @@ class PlainBlendGrad(NamedTuple):
     chunks_skipped: int       # live tile chunks skipped as saturated
 
 
-def _tile_pixels(settings: RasterSettings, n_tiles: int, dev):
-    """(px, py) [T, P] float pixel coordinates of every tile's pixels."""
+def _tile_pixels(settings: RasterSettings, n_tiles: int, dev,
+                 tile0: int = 0):
+    """(px, py) [T, P] float pixel coordinates of the pixels of tiles
+    [tile0, tile0 + n_tiles) of the image's tile grid."""
     s = settings
     P = s.tile * s.tile
     pix = torch.arange(P, device=dev)
-    tiles = torch.arange(n_tiles, device=dev)
+    tiles = tile0 + torch.arange(n_tiles, device=dev)
     px = ((tiles % s.tiles_x) * s.tile)[:, None] + pix % s.tile
     py = ((tiles // s.tiles_x) * s.tile)[:, None] + pix // s.tile
     return px.to(torch.float32), py.to(torch.float32)
@@ -131,9 +142,22 @@ def _chunk_grads(attr, m, g_col, svec, settings: RasterSettings):
     return g_rows, e.sum(2)
 
 
+def _check_range(count: torch.Tensor, settings: RasterSettings,
+                 tile0: int, n_tiles_out: int | None) -> int:
+    """The tile count of a range; raise unless ``count`` holds it."""
+    n_tiles_out = settings.n_tiles if n_tiles_out is None else n_tiles_out
+    if count.dim() != 1 or count.shape[0] != n_tiles_out:
+        raise ValueError(f"astart/count must hold {n_tiles_out} tiles, "
+                         f"got {tuple(count.shape)}")
+    if not 0 <= tile0 < 2**31 - n_tiles_out:
+        raise ValueError(f"tile0={tile0} out of range")
+    return n_tiles_out
+
+
 def blend_forward_plain(table: torch.Tensor, rank: torch.Tensor,
                         astart: torch.Tensor, count: torch.Tensor,
-                        settings: RasterSettings) -> PlainBlend:
+                        settings: RasterSettings, tile0: int = 0,
+                        n_tiles_out: int | None = None) -> PlainBlend:
     """The JAX kernel's algorithm written out in torch, batched over tiles.
 
     Walks chunks of 128 entries; each chunk's transmittance comes from one
@@ -143,13 +167,14 @@ def blend_forward_plain(table: torch.Tensor, rank: torch.Tensor,
     product form), and ``tacc``, the T after the last contributing entry. A
     tile's chunk is skipped, exactly, once every pixel has trun < eps.
     ``tin`` records trun entering every chunk of a tile, skipped or not,
-    as the TPU kernel saves it for its backward.
+    as the TPU kernel saves it for its backward. ``tile0`` and
+    ``n_tiles_out`` name the tile range (module docstring).
     """
     s = settings
     dev = table.device
     P = s.tile * s.tile
-    n_tiles = count.shape[0]
-    px, py = _tile_pixels(s, n_tiles, dev)
+    n_tiles = _check_range(count, s, tile0, n_tiles_out)
+    px, py = _tile_pixels(s, n_tiles, dev, tile0)
 
     cacc = torch.zeros(n_tiles, P, 3, device=dev)
     tacc = torch.ones(n_tiles, P, device=dev)
@@ -194,7 +219,8 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
                          astart: torch.Tensor, count: torch.Tensor,
                          settings: RasterSettings, tfinal: torch.Tensor,
                          tin: torch.Tensor, g_cpre: torch.Tensor,
-                         g_tfinal: torch.Tensor) -> PlainBlendGrad:
+                         g_tfinal: torch.Tensor, tile0: int = 0,
+                         n_tiles_out: int | None = None) -> PlainBlendGrad:
     """The JAX ``_backward_kernel``'s algorithm batched over tiles, with
     its reduction of per-entry gradients to table rows (``_bwd``).
 
@@ -203,11 +229,12 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
     S = gT * T_final + sum over later entries of (gC . c) w per pixel
     (``_chunk_grads`` gives each entry's terms). A chunk whose entering T
     is below eps at every pixel holds no contributing entry and is
-    skipped, exactly, as in the forward."""
+    skipped, exactly, as in the forward. ``tile0`` and ``n_tiles_out``
+    name the tile range (module docstring)."""
     s = settings
     dev = table.device
-    n_tiles = count.shape[0]
-    px, py = _tile_pixels(s, n_tiles, dev)
+    n_tiles = _check_range(count, s, tile0, n_tiles_out)
+    px, py = _tile_pixels(s, n_tiles, dev, tile0)
     g_col = g_cpre.transpose(1, 2)                         # [T, P, 3]
     svec = (g_tfinal[:, 0, :] * tfinal[:, 0, :]).clone()   # [T, P]
     g_table = torch.zeros_like(table)
@@ -232,8 +259,10 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
     return PlainBlendGrad(g_table=g_table, chunks_skipped=skipped)
 
 
-def _check_stream(table, rank, astart, count, settings: RasterSettings):
-    """Raise unless the CUDA kernels can take this table and stream."""
+def _check_stream(table, rank, astart, count, settings: RasterSettings,
+                  tile0: int, n_tiles_out: int | None) -> int:
+    """Raise unless the CUDA kernels can take this table and stream;
+    return the range's tile count."""
     s = settings
     if s.tile != 16:
         raise ValueError(f"the blend kernels need 16x16 tiles, got {s.tile}")
@@ -244,16 +273,21 @@ def _check_stream(table, rank, astart, count, settings: RasterSettings):
     if table.shape[1] != N_ATTR:
         raise ValueError(f"table must be [M, {N_ATTR}], got "
                          f"{tuple(table.shape)}")
-    if astart.shape[0] != count.shape[0] or count.shape[0] != s.n_tiles:
-        raise ValueError(f"astart/count must hold {s.n_tiles} tiles")
+    if astart.shape != count.shape:
+        raise ValueError(f"astart {tuple(astart.shape)} != count "
+                         f"{tuple(count.shape)}")
+    return _check_range(count, s, tile0, n_tiles_out)
 
 
 def blend_forward(table: torch.Tensor, rank: torch.Tensor,
                   astart: torch.Tensor, count: torch.Tensor,
-                  settings: RasterSettings, for_backward: bool = False):
+                  settings: RasterSettings, for_backward: bool = False,
+                  tile0: int = 0, n_tiles_out: int | None = None):
     """(cpre [T, 3, P], tfinal [T, 1, P]) of each tile's front-to-back blend;
     with ``for_backward`` also ``n_last`` [T, P] int32, one past each
     pixel's last contributing entry, which ``blend_backward`` starts from.
+    T is ``n_tiles_out`` (default: the image's), the tiles from ``tile0``
+    on (module docstring).
 
     Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
     _forward_kernel`` together with the ``table[rank]`` gather before it.
@@ -270,21 +304,22 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     kernel.
     """
     if table.device.type == "cpu":
-        out = blend_forward_plain(table, rank, astart, count, settings)
+        out = blend_forward_plain(table, rank, astart, count, settings,
+                                  tile0, n_tiles_out)
         if for_backward:
             return out.cpre, out.tfinal, out.n_last
         return out.cpre, out.tfinal
-    _check_stream(table, rank, astart, count, settings)
     s = settings
-    n_tiles = count.shape[0]
+    n_tiles = _check_stream(table, rank, astart, count, s, tile0,
+                            n_tiles_out)
     P = s.tile * s.tile
     cpre = torch.empty(n_tiles, 3, P, device=table.device)
     tfinal = torch.empty(n_tiles, 1, P, device=table.device)
     n_last = (torch.empty(n_tiles, P, dtype=torch.int32, device=table.device)
               if for_backward else None)
     kernels.launch("blend_forward", table.data_ptr(), rank.data_ptr(),
-                   astart.data_ptr(), count.data_ptr(), n_tiles, s.tiles_x,
-                   s.alpha_clip, s.alpha_floor, s.transmittance_eps,
+                   astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
+                   s.tiles_x, s.alpha_clip, s.alpha_floor, s.transmittance_eps,
                    cpre.data_ptr(), tfinal.data_ptr(),
                    None if n_last is None else n_last.data_ptr())
     blend_forward.launches += 1
@@ -300,10 +335,12 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
                    astart: torch.Tensor, count: torch.Tensor,
                    settings: RasterSettings, tfinal: torch.Tensor,
                    n_last: torch.Tensor, g_cpre: torch.Tensor,
-                   g_tfinal: torch.Tensor) -> torch.Tensor:
+                   g_tfinal: torch.Tensor, tile0: int = 0,
+                   n_tiles_out: int | None = None) -> torch.Tensor:
     """g_table [M, 9]: the gradient of every table row, given the
     cotangents of ``cpre`` and ``tfinal`` and the forward's ``tfinal`` and
-    ``n_last`` (``blend_forward(..., for_backward=True)``).
+    ``n_last`` (``blend_forward(..., for_backward=True)``), for the range
+    of ``n_tiles_out`` tiles from ``tile0`` (module docstring).
 
     Replaces the TPU kernel ``das3r_tpu/ops/splat/entry_blend.py::
     _backward_kernel`` and the XLA reduction of its per-entry gradients to
@@ -320,13 +357,14 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
     ``n_last``); a CUDA tensor launches the kernel.
     """
     if table.device.type == "cpu":
-        fwd = blend_forward_plain(table, rank, astart, count, settings)
+        fwd = blend_forward_plain(table, rank, astart, count, settings,
+                                  tile0, n_tiles_out)
         return blend_backward_plain(table, rank, astart, count, settings,
-                                    fwd.tfinal, fwd.tin, g_cpre,
-                                    g_tfinal).g_table
-    _check_stream(table, rank, astart, count, settings)
+                                    fwd.tfinal, fwd.tin, g_cpre, g_tfinal,
+                                    tile0, n_tiles_out).g_table
     s = settings
-    n_tiles = count.shape[0]
+    n_tiles = _check_stream(table, rank, astart, count, s, tile0,
+                            n_tiles_out)
     P = s.tile * s.tile
     for t, name, dtype, shape in (
             (tfinal, "tfinal", torch.float32, (n_tiles, 1, P)),
@@ -338,8 +376,8 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     g_table = torch.zeros_like(table)
     kernels.launch("blend_backward", table.data_ptr(), rank.data_ptr(),
-                   astart.data_ptr(), count.data_ptr(), n_tiles, s.tiles_x,
-                   s.alpha_clip, s.alpha_floor, tfinal.data_ptr(),
+                   astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
+                   s.tiles_x, s.alpha_clip, s.alpha_floor, tfinal.data_ptr(),
                    n_last.data_ptr(), g_cpre.data_ptr(), g_tfinal.data_ptr(),
                    g_table.data_ptr())
     blend_backward.launches += 1
@@ -351,13 +389,15 @@ blend_backward.launches = 0
 
 class _BlendEntryStream(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, rank, astart, count, settings):
+    def forward(ctx, table, rank, astart, count, settings, tile0,
+                n_tiles_out):
+        rng = dict(tile0=tile0, n_tiles_out=n_tiles_out)
         if not ctx.needs_input_grad[0]:
-            return blend_forward(table, rank, astart, count, settings)
+            return blend_forward(table, rank, astart, count, settings, **rng)
         cpre, tfinal, n_last = blend_forward(table, rank, astart, count,
-                                             settings, for_backward=True)
+                                             settings, True, **rng)
         ctx.save_for_backward(table, rank, astart, count, tfinal, n_last)
-        ctx.settings = settings
+        ctx.settings, ctx.rng = settings, rng
         return cpre, tfinal
 
     @staticmethod
@@ -367,20 +407,26 @@ class _BlendEntryStream(torch.autograd.Function):
             g_table = blend_backward(table, rank, astart, count,
                                      ctx.settings, tfinal, n_last,
                                      g_cpre.contiguous(),
-                                     g_tfinal.contiguous())
-        return g_table, None, None, None, None
+                                     g_tfinal.contiguous(), **ctx.rng)
+        return g_table, None, None, None, None, None, None
 
 
 def blend_entry_stream(table, rank, astart, count,
-                       settings: RasterSettings):
+                       settings: RasterSettings, tile0: int = 0,
+                       n_tiles_out: int | None = None):
     """table [N+1, 9] (row N = zero sentinel), rank [E_al] int32, astart
     and count [T] int32 -> (cpre [T, 3, P], tfinal [T, 1, P]); an empty
-    tile is (0, 1). Differentiable in ``table``."""
-    return _BlendEntryStream.apply(table, rank, astart, count, settings)
+    tile is (0, 1). T is ``n_tiles_out`` (default: the image's), the tiles
+    from ``tile0`` on. Differentiable in ``table``."""
+    return _BlendEntryStream.apply(table, rank, astart, count, settings,
+                                   tile0, n_tiles_out)
 
 
 def render_tiles(table: torch.Tensor, stream: EntryStream,
-                 settings: RasterSettings):
-    """Blend every tile of ``stream``; see ``blend_entry_stream``."""
+                 settings: RasterSettings, tile0: int = 0,
+                 n_tiles_out: int | None = None):
+    """Blend every tile of ``stream`` (a range's stream from
+    ``binning.entry_stream_from_keys(tile0, t_loc)`` with ``n_tiles_out =
+    t_loc``); see ``blend_entry_stream``."""
     return blend_entry_stream(table, stream.rank, stream.astart,
-                              stream.count, settings)
+                              stream.count, settings, tile0, n_tiles_out)

@@ -36,14 +36,15 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     # keys, src0, nlive, n_chunks, nbits, n, rank_out, stream
     "extract_chunks": (_P, _P, _P, _L, _I, _I, _P, _P),
-    # table, rank, astart, count, n_tiles, tiles_x, alpha_clip,
+    # table, rank, astart, count, n_tiles, tile0, tiles_x, alpha_clip,
     # alpha_floor, eps, cpre_out, tfinal_out, n_last_out (may be NULL),
     # stream
-    "blend_forward": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P),
-    # table, rank, astart, count, n_tiles, tiles_x, alpha_clip,
+    "blend_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P,
+                      _P),
+    # table, rank, astart, count, n_tiles, tile0, tiles_x, alpha_clip,
     # alpha_floor, tfinal, n_last, g_cpre, g_tfinal, g_table_out, stream
-    "blend_backward": (_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _P,
-                       _P),
+    "blend_backward": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P,
+                       _P, _P),
     # keys, n_keys, start, n_tiles, k_cap, nbits, n, rank_out, stream
     "extract_windows": (_P, _L, _P, _I, _I, _I, _I, _P, _P),
     # attrs, count, delta, bg, n_tiles, K, chunk, tiles_x, alpha_clip,

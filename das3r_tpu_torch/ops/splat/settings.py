@@ -23,10 +23,13 @@ as follows:
   path off the TPU and without ``max_total_entries``; the port does not.
 * ``heavy_rows_cap`` and ``light_dup_width``: the split-width duplication
   table, as in the JAX package (binning.py), on both raster branches.
+* ``entries_per_shard``: the stream capacity of one tile range of the
+  tile-sharded render (``rasterize.render_range``); unset, a range takes
+  the global cap, or, with ``max_total_entries`` None, is sized from its
+  counts.
 * Not ported (ROADMAP.md): the quantized-depth
-  binning (``depth_sort_bits > 0`` raises), tile sharding
-  (``entries_per_shard``), the backward reduction options (``segsum_*``)
-  and ``table_bf16`` (rasterize raises).
+  binning (``depth_sort_bits > 0`` raises), the backward reduction
+  options (``segsum_*``) and ``table_bf16`` (rasterize raises).
 """
 from __future__ import annotations
 

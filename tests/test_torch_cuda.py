@@ -237,6 +237,87 @@ def test_blend_backward_kernel_matches_plain(cuda, variant):
                                    atol=GRAD_TOL * ref, rtol=0, msg=name)
 
 
+def range_args(args, tile0, t_loc):
+    """One tile range of a ``blend_case`` stream: its tiles' counts and
+    segment starts (count 0 past the image), over the same ranks."""
+    _, rank, astart, count = args
+    k = max(min(t_loc, count.shape[0] - tile0), 0)
+    loc_count = torch.zeros(t_loc, dtype=torch.int32)
+    loc_astart = torch.zeros(t_loc, dtype=torch.int32)
+    loc_count[:k] = count[tile0:tile0 + k]
+    loc_astart[:k] = astart[tile0:tile0 + k]
+    return [args[0], rank, loc_astart, loc_count]
+
+
+# The tile-range form of B and C on the existing instances (no new draw):
+# the image's 30 tiles as 4 ranges of 8, the last with 2 padded tiles.
+RANGE_TILE0 = {"first": 0, "second": 8, "last": 24}
+
+
+@pytest.mark.parametrize("where", list(RANGE_TILE0))
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_blend_kernels_on_a_tile_range_match_plain(cuda, variant, where):
+    """Kernels B and C on one tile range (``tile0``, ``n_tiles_out``)
+    against their plain versions at the bars of the whole-image tests; B's
+    rows bitwise the whole-image launch's rows of those tiles; a padded
+    tile (0, 1) and no gradient."""
+    s, args = blend_case(variant)
+    tile0, t_loc = RANGE_TILE0[where], 8
+    assert -(-s.n_tiles // 4) == t_loc
+    loc = range_args(args, tile0, t_loc)
+    rng = dict(tile0=tile0, n_tiles_out=t_loc)
+    plain = entry_blend.blend_forward_plain(*loc, s, **rng)
+    dev = [a.to(cuda) for a in loc]
+    cpre, tfinal, n_last = entry_blend.blend_forward(*dev, s, True, **rng)
+    whole, whole_t = entry_blend.blend_forward(*(a.to(cuda) for a in args),
+                                               s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cpre.cpu(), plain.cpre, atol=BLEND_TOL,
+                               rtol=0)
+    torch.testing.assert_close(tfinal.cpu(), plain.tfinal, atol=BLEND_TOL,
+                               rtol=0)
+    k = min(t_loc, s.n_tiles - tile0)
+    assert torch.equal(cpre[:k], whole[tile0:tile0 + k])
+    assert torch.equal(tfinal[:k], whole_t[tile0:tile0 + k])
+    assert (cpre[k:] == 0).all() and (tfinal[k:] == 1).all()
+    assert (n_last[k:] == 0).all()
+
+    gen = np.random.default_rng(31 + tile0)
+    P = s.tile * s.tile
+    g_cpre = torch.as_tensor(gen.normal(size=(t_loc, 3, P)).astype(
+        np.float32))
+    g_tfinal = torch.as_tensor(gen.normal(size=(t_loc, 1, P)).astype(
+        np.float32))
+    want = entry_blend.blend_backward_plain(
+        *loc, s, plain.tfinal, plain.tin, g_cpre, g_tfinal, **rng).g_table
+    got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
+                                     g_cpre.to(cuda), g_tfinal.to(cuda),
+                                     **rng)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.isfinite(got).all() and (got[-1] == 0).all()
+    for name, cols in GROUPS.items():
+        ref = float(want[:, cols].abs().max())
+        assert ref > 0, name
+        torch.testing.assert_close(got[:, cols], want[:, cols],
+                                   atol=GRAD_TOL * ref, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_blend_forward_range_from_zero_is_the_whole_launch(cuda, variant):
+    """B with tile0 = 0 and n_tiles_out = n_tiles is bitwise the launch
+    that names neither."""
+    s, args = blend_case(variant)
+    dev = [a.to(cuda) for a in args]
+    for for_backward in (False, True):
+        a = entry_blend.blend_forward(*dev, s, for_backward)
+        b = entry_blend.blend_forward(*dev, s, for_backward, tile0=0,
+                                      n_tiles_out=s.n_tiles)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
 def test_blend_backward_autograd_launches_both_kernels(cuda):
     s, args = blend_case("sparse")
     table = args[0].to(cuda).requires_grad_(True)
