@@ -31,7 +31,9 @@ failure:
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
    ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
-   training loss, within 2e-5 x max|g| per parameter.
+   training loss, within 2e-5 x max|g| per parameter; and 800 Gaussians
+   rasterized on the card, on both raster branches, against the port's
+   float64 oracle (``ops/splat/reference.py``) within 2e-4, radii equal.
 6. main: ``das3r_tpu_torch.eval.render_tool.render_sets`` renders all 8
    views on ``cuda``; checks 8 finite, non-constant PNGs, no dropped
    entry, and that the forward kernels launched once per view.
@@ -60,6 +62,17 @@ failure:
    carries its per-tile work (entries per tile and each tile's longest
    pixel run: mean, max, the busiest SM's sum) and its blocks per SM,
    and how often its n_last agrees with the plain version's.
+11b. bf16_table: the bf16 attribute table (``table_bf16``) on view 0 of
+   that bundle and of the random scene: the card's encode bitwise the
+   CPU's; B-bf16 (with and without n_last) and C-bf16 against their plain
+   versions (the f32 plain versions on the decoded table) at the bars of
+   phase 4; the bf16 image against the f32 one in JAX's envelope (max <
+   1.5e-2, mean < 1e-3); B-bf16's and C-bf16's ``ms`` and ``device_ms``
+   beside f32 B's and C's on the same stream, in turns (f32, bf16, bf16,
+   f32), with their bounds; view 0 as 2 tile ranges through B-bf16,
+   reassembled bitwise the whole-image B-bf16; then 10 ``train_step``s of
+   phase 8 with ``table_bf16`` (finite, the loss falls, one launch of
+   B-bf16 and C-bf16 a step).
 12. sharded: multi-device training on that bundle. First, in one
    process, its view 0 as 2, 4 and 5 tile ranges (5 leaves 4 padded
    tiles) through kernels A, B and C in their tile-range form: the
@@ -68,13 +81,18 @@ failure:
    of 4 against the plain versions at the bars of phase 4; per range
    count the layouts', B's and C's ``ms`` (all ranges in turn) and
    ``device_ms`` (each range's kernel alone, summed) beside the
-   whole-image calls, and each range's bound. Then
+   whole-image calls, and each range's bound. The same on the window
+   path (K from the probe): view 0 as 2 and 4 ranges of window rows
+   through kernels D and E in their tile-range form, the colours bitwise
+   the whole-image D's, the summed gradients of the depth-rank table and
+   of bg within 1e-6 x max|g|. Then
    ``parallel.sharded.make_sharded_train_step`` on two gloo ranks spawned
    on the one card (NCCL refuses two ranks on a device), 3 steps of one
    frame at (tile=2) and at (gauss=2), each against the port's unsharded
    step on the same card at the CPU tests' bars (the loss within rel
    1e-5, the first step's gradients within 2e-5 x max|g| per field, the
-   parameters within 2 lr per step); step ms (host clock after a
+   parameters within 2 lr per step), and at (tile=2) on the window path
+   (``entry_stream=False``, K from the probe); step ms (host clock after a
    synchronize), ``comm_stats`` bytes a step per family, peak memory a
    rank: two ranks on one card, not a scaling number.
 13. window_parity: view 0 of that bundle at full size on the [T, K] window
@@ -89,7 +107,10 @@ failure:
    K, kernel B on view 0's entry stream against kernel D's colours and
    final transmittance (bg = 0; the count of values that differ and the
    largest difference, within 2e-4) and the window-path image against
-   the entry-stream image within 2e-4.
+   the entry-stream image within 2e-4. Then the quantized-depth binning
+   at 22 bits: the card's bins bitwise the CPU's, kernel D's colours on
+   them against the plain version on the CPU (3 tile rows) within 2e-4,
+   its binning time beside the exact binning's.
 14. split_table: view 0 of that bundle and view 0 of the random scene,
    each binned three ways on both raster branches: the full-width
    ``[N, D]`` table; the split ``[N, L] + [H_cap, D - L]`` table at the
@@ -127,7 +148,13 @@ failure:
    DUST3R_LARGE_CONFIG (606M parameters, seeded random weights from the
    testkit's generator, std 0.02) on ``cuda``: a 16-frame synthetic video
    at 288x512, ``eval_scene_graph(16)`` (110 symmetrized edges), the
-   aligner's defaults (300 iterations). Checks every output finite, the
+   aligner's defaults (300 iterations), with flows from classic RAFT on
+   seeded random weights (its flow head scaled by 0.01; 20 iterations,
+   both directions of every edge) for the flow term, and the
+   NeighborPropagator's mask refinement (``--refine_masks``). Then RAFT
+   on one chunk of 12 edges timed, its first pair against the CPU
+   within 1e-4 x max|CPU|, and SEA-RAFT "M" on the same chunk at 1
+   iteration, timed and held the same way. Checks every output finite, the
    alignment loss falling, every artifact file written and no raster
    kernel launched; prints the parameter count, the peak device memory,
    each part's seconds (the host initialization apart from the loop),
@@ -149,11 +176,11 @@ failure:
    renders and the video, and the launches of each stage: D and F in the
    probe, A, B, C in training, A and B in the renders.
 
-Then the ``kernels`` line (A, B, C at the trainer scene with their
-random-scene numbers under ``random_scene``, B and C with their
-tile-range numbers under ``tile_range``; D, E, F at the trainer scene;
-launches by path, the viewer's, stage 1's, the pipeline's and the
-sharded steps' included), the ``nvidia-smi`` line, and last the device line. Everything it
+Then the ``kernels`` line (A, B, C, B-bf16 and C-bf16 at the trainer
+scene with their random-scene numbers under ``random_scene``; B, C, D and
+E with their tile-range numbers under ``tile_range``; D, E, F at the
+trainer scene; launches by path, the viewer's, stage 1's, the pipeline's,
+the bf16 steps' and the sharded steps' of both paths included), the ``nvidia-smi`` line, and last the device line. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -162,6 +189,8 @@ nothing, when it stands alone.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import json
 import shutil
 import statistics
@@ -218,11 +247,26 @@ SHARDED_RANGES = (2, 4, 5)   # tile ranges of view 0; 5 leaves 4 padded
 # whole-image C (both add with atomics, in orders that differ)
 RANGE_GRAD_TOL = 1e-6
 SHARDED_STEPS = 3
-SHARDED_TIMEOUT = 240        # s, both ranks, start-up included
+WINDOW_RANGES = (2, 4)       # window-row ranges of view 0 (kernels D, E)
+QDEPTH_BITS = 22             # the JAX test's quantized-depth keys
+QDEPTH_CPU_TILES = 3         # tile rows of the CPU's quantized-depth check
+FLOW_SEED = SEED + 12        # the flow networks' random weights
+FLOW_CHUNK = 12              # edges per flow forward call (flow.py)
+FLOW_CPU_BAR = 1e-4          # x max|CPU|: tests/test_torch_flow.py's bar
+SEARAFT_CHECK_ITERS = 1      # the iterations that bar holds SEA-RAFT at
+SHARDED_TIMEOUT = 360        # s, both ranks, start-up included
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
 # a kernel's numbers on a phase's line and beside the other scene's
+# the bf16 table's image against the f32 one: JAX's envelope
+# (tests/test_entry_stream.py:293-294), on JAX's test background
+BF16_ENV_MAX, BF16_ENV_MEAN = 1.5e-2, 1e-3
+BF16_BG = (0.2, 0.3, 0.1)
+BF16_SUMMARY_KEYS = ("max_abs_err", "max_abs_err_with_n_last",
+                     "err_over_max_g", "image_err_vs_f32", "ms", "device_ms",
+                     "f32_ms", "f32_device_ms", "plain_ms", "bound_ms",
+                     "bound_by", "n_last_agrees")
 SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "device_ms",
                 "device_ms_calls", "device_ms_kernels", "device_ms_sessions",
                 "ms_with_n_last", "plain_ms", "library_ms",
@@ -352,6 +396,8 @@ def kernel_counters():
     return {"extract_chunks": binning.extract_chunks,
             "blend_forward": entry_blend.blend_forward,
             "blend_backward": entry_blend.blend_backward,
+            "blend_forward_bf16": entry_blend.blend_forward_bf16,
+            "blend_backward_bf16": entry_blend.blend_backward_bf16,
             "extract_windows": binning.extract_windows,
             "window_blend_forward": window_blend.window_forward,
             "window_blend_backward": window_blend.window_backward}
@@ -725,8 +771,59 @@ def phase_reference(dev):
            for k, a, b in zip(names, grads[dev], grads["cpu"])}
     if not max(rel.values()) <= GRAD_TOL:
         raise AssertionError(f"card gradients differ from CPU: {rel}")
+    oracle = oracle_check(s, dev)
     emit("reference", seconds=time.perf_counter() - t0, max_abs_err=err,
-         shape=list(imgs[dev].shape), grad_err_over_max_g=rel)
+         shape=list(imgs[dev].shape), grad_err_over_max_g=rel,
+         oracle=oracle)
+
+
+def oracle_check(s, dev) -> dict:
+    """``rasterize`` on the card, entry stream and window path, against
+    the float64 oracle (``ops/splat/reference.py``) on a scene of 800
+    Gaussians in front of the identity camera: the image within 2e-4, the
+    radii equal."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.models import render as render_mod
+    from das3r_tpu_torch.ops.splat import rasterize
+    from das3r_tpu_torch.ops.splat.reference import rasterize_reference
+
+    rng = np.random.default_rng(SEED + 13)
+    n = 800
+    z = rng.uniform(2.0, 6.0, n)
+    means = np.stack([rng.uniform(-0.5, 0.5, n) * z,
+                      rng.uniform(-0.35, 0.35, n) * z, z], 1)
+    q = rng.normal(size=(n, 4))
+    kw = dict(scales=rng.uniform(0.02, 0.15, (n, 3)),
+              rotations=q / np.linalg.norm(q, axis=1, keepdims=True),
+              colors_precomp=rng.uniform(0, 1, (n, 3)),
+              bg=np.array([0.1, 0.2, 0.3]))
+    kw = {k: v.astype(np.float32) for k, v in kw.items()}
+    means, ops = means.astype(np.float32), rng.uniform(
+        0.1, 0.9, (n, 1)).astype(np.float32)
+    view, proj, campos, tfx, tfy = (
+        x.numpy() for x in render_mod._raster_common(1.0, 1.0, "cpu"))
+    cam = dict(viewmatrix=view, projmatrix=proj, campos=campos,
+               tan_fovx=float(tfx), tan_fovy=float(tfy))
+    ref, ref_radii = rasterize_reference(means, ops, s, **cam, **kw)
+    covered = float((np.abs(ref - kw["bg"][:, None, None]).max(0)
+                     > 0.01).mean())
+    if covered < 0.5:
+        raise AssertionError(f"the oracle scene covers {covered} of the "
+                             f"image")
+    out = {"covered": covered}
+    for name, st in (("entry_stream", s),
+                     ("window", dataclasses.replace(
+                         s, entry_stream=False, max_per_tile=1024))):
+        img, radii, aux = rasterize(means, ops, st, **cam, **kw, device=dev)
+        err = float(np.abs(img.cpu().numpy() - ref).max())
+        same_radii = bool(np.array_equal(radii.cpu().numpy(), ref_radii))
+        if not (err <= BLEND_TOL and same_radii
+                and int(aux.tile_overflow) == 0):
+            raise AssertionError(f"{name} render against the f64 oracle: "
+                                 f"{err}, radii equal {same_radii}")
+        out[name] = dict(max_abs_err=err, radii_equal=same_radii)
+    return out
 
 
 def phase_main(scene: Path, model: Path, device=None):
@@ -861,9 +958,10 @@ def train_scene(data, dev):
     return params, meta, poses
 
 
-def phase_train(data, settings, dev):
-    """``train_step`` at full width over frames 0 and 1; returns the
-    state, meta, each kernel's launches and what one more step needs."""
+def phase_train(data, settings, dev, phase: str = "train"):
+    """``train_step`` at full width over frames 0 and 1; returns each
+    kernel's launches and what one more step needs. With
+    ``settings.table_bf16`` the bf16 forms of B and C run."""
     import dataclasses
     import math
 
@@ -922,12 +1020,14 @@ def phase_train(data, settings, dev):
     if not losses[TRAIN_STEPS - 2] < losses[0]:
         raise AssertionError(f"frame 0's loss did not fall: {losses}")
     # the entry-stream kernels once per step, the window path's never
-    entry = ("extract_chunks", "blend_forward", "blend_backward")
+    entry = ("extract_chunks",) + (
+        ("blend_forward_bf16", "blend_backward_bf16") if settings.table_bf16
+        else ("blend_forward", "blend_backward"))
     for name, count in launches.items():
         if count != (TRAIN_STEPS if name in entry else 0):
             raise AssertionError(f"{name} launched {count} times in "
                                  f"{TRAIN_STEPS} train steps")
-    emit("train", seconds=time.perf_counter() - t0, setup_seconds=setup_s,
+    emit(phase, seconds=time.perf_counter() - t0, setup_seconds=setup_s,
          steps=TRAIN_STEPS, step_ms_median_steps_2_10=statistics.median(
              ms[1:]), step_ms=ms, losses=losses,
          psnr=[float(m.psnr) for m in metrics],
@@ -1026,6 +1126,223 @@ class _Timed:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def bf16_table_view(prep, settings, dev) -> list[dict]:
+    """Kernels B and C in their table_bf16 form on one view's entry stream
+    (``prep`` binned with ``settings``): the card's encode bitwise the
+    CPU's; B-bf16 (with and without ``n_last``) and C-bf16 against their
+    plain versions (the f32 plain versions on the decoded table) at the
+    bars of ``entry_kernel_parity``; the bf16 image against the f32 image
+    in JAX's envelope; B-bf16's and C-bf16's times beside f32 B's and C's
+    on the same stream, in turns (f32, bf16, bf16, f32), and their
+    bounds."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.ops.splat import binning
+    from das3r_tpu_torch.ops.splat import entry_blend as eb
+
+    es = binning.bin_entry_stream(prep, settings)
+    attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                      prep.opacity[:, None]], 1)
+    table = torch.cat([attr[es.order], torch.zeros_like(attr[:1])]
+                      ).contiguous()
+    t16 = eb.encode_bf16_table(table)
+    cpu16 = eb.encode_bf16_table(table.cpu())
+    differ = int((t16.view(torch.int16).cpu() != cpu16.view(torch.int16))
+                 .sum())
+    if differ:
+        raise AssertionError(f"the card's bf16 encode differs from the "
+                             f"CPU's on {differ} values")
+    dec = eb.decode_bf16_table(t16)
+    stream = (es.rank, es.astart, es.count, settings)
+
+    # --- B-bf16 --------------------------------------------------------
+    cpre, tfinal = eb.blend_forward_bf16(t16, *stream)
+    cpre_n, tfinal_n, n_last = eb.blend_forward_bf16(t16, *stream, True)
+    plain = eb.blend_forward_plain(dec, *stream)
+    torch.cuda.synchronize()
+    err = max(float((cpre - plain.cpre).abs().max()),
+              float((tfinal - plain.tfinal).abs().max()))
+    err_n = max(float((cpre_n - plain.cpre).abs().max()),
+                float((tfinal_n - plain.tfinal).abs().max()))
+    if not max(err, err_n) <= BLEND_TOL:
+        raise AssertionError(f"blend_forward_bf16 max err {err} (with "
+                             f"n_last {err_n}) > {BLEND_TOL}")
+    bg = torch.tensor(BF16_BG, device=dev).reshape(1, 3, 1)
+    c32, t32 = eb.blend_forward(table, *stream)
+    img = ((cpre + tfinal * bg) - (c32 + t32 * bg)).abs()
+    env = dict(max=float(img.max()), mean=float(img.mean()))
+    if not (env["max"] < BF16_ENV_MAX and env["mean"] < BF16_ENV_MEAN):
+        raise AssertionError(f"the bf16 image against the f32 image: {env} "
+                             f"(JAX's envelope {BF16_ENV_MAX}, "
+                             f"{BF16_ENV_MEAN})")
+    n_eval = int(plain.n_eval.sum())
+    n_slots, pre_bytes = prefix_bytes(es, plain.n_eval.amax(1),
+                                      eb.N_ATTR_BF16 * 2)
+    nbytes = (pre_bytes + es.astart.numel() * 4 + es.count.numel() * 4
+              + cpre.numel() * 4 + tfinal.numel() * 4)
+    b_ms, b_by = bound(nbytes, max(
+        n_eval * BLEND_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+        n_eval / SFU_OPS_PER_S))
+
+    def fwd(tab):
+        return eb.blend_forward(tab, *stream)
+
+    turns = [time_ms(lambda t=t: fwd(t)) for t in (table, t16, t16, table)]
+    dev_turns = [device_ms(lambda t=t: fwd(t),
+                           "blend_forward_kernel")["device_ms"]
+                 for t in (table, t16, t16, table)]
+    b = dict(
+        name="blend_forward_bf16", route="cuda",
+        source="das3r_tpu_torch/csrc/blend_forward.cu",
+        replaces="das3r_tpu/ops/splat/entry_blend.py:145",
+        form="table_bf16: the [N+1, 11] bf16 table decoded where it is "
+             "staged (JAX: _load_attrs, entry_blend.py:71)",
+        max_abs_err=err, max_abs_err_with_n_last=err_n,
+        image_err_vs_f32=env,
+        ms=(turns[1] + turns[2]) / 2, device_ms=(dev_turns[1] + dev_turns[2])
+        / 2, f32_ms=(turns[0] + turns[3]) / 2,
+        f32_device_ms=(dev_turns[0] + dev_turns[3]) / 2,
+        ms_turns_f32_bf16_bf16_f32=turns,
+        device_ms_turns_f32_bf16_bf16_f32=dev_turns,
+        plain_ms=time_ms(lambda: eb.blend_forward_plain(
+            eb.decode_bf16_table(t16), *stream)),
+        library_ms=None, library_device_ms=None, bound_ms=b_ms,
+        bound_by=b_by, pixel_entry_evals=n_eval, entries_needed=n_slots,
+        n_last_agrees=float((n_last == plain.n_last).float().mean()),
+        bytes=nbytes)
+
+    # --- C-bf16 --------------------------------------------------------
+    gen = np.random.default_rng(SEED + 4)
+    g_cpre = torch.as_tensor(gen.normal(size=tuple(cpre.shape)).astype(
+        np.float32), device=dev)
+    g_tfinal = torch.as_tensor(gen.normal(size=tuple(tfinal.shape)).astype(
+        np.float32), device=dev)
+    got = eb.blend_backward_bf16(t16, *stream, tfinal_n, n_last, g_cpre,
+                                 g_tfinal)
+    want = eb.blend_backward_plain(dec, *stream, plain.tfinal, plain.tin,
+                                   g_cpre, g_tfinal).g_table
+    torch.cuda.synchronize()
+    rel = {k: float((got[:, c] - want[:, c]).abs().max()
+                    / want[:, c].abs().max()) for k, c in GROUPS.items()}
+    if not (got.dtype == torch.float32 and got.shape == table.shape
+            and torch.isfinite(got).all() and max(rel.values()) <= GRAD_TOL):
+        raise AssertionError(f"blend_backward_bf16 err / max|g| {rel} > "
+                             f"{GRAD_TOL}")
+    _, t32n, nl32 = eb.blend_forward(table, *stream, True)
+
+    def bwd(tab, tf, nl):
+        return eb.blend_backward(tab, *stream, tf, nl, g_cpre, g_tfinal)
+
+    args = [(table, t32n, nl32), (t16, tfinal_n, n_last),
+            (t16, tfinal_n, n_last), (table, t32n, nl32)]
+    turns = [time_ms(lambda a=a: bwd(*a)) for a in args]
+    dev_turns = [device_ms(lambda a=a: bwd(*a),
+                           "blend_backward_kernel")["device_ms"]
+                 for a in args]
+    evals = int(n_last.sum())
+    n_slots, pre_bytes = prefix_bytes(es, n_last.amax(1).long(),
+                                      eb.N_ATTR_BF16 * 2)
+    nbytes = (pre_bytes + (n_last.numel() + es.astart.numel()
+                           + es.count.numel()) * 4
+              + (tfinal.numel() + g_cpre.numel() + g_tfinal.numel()) * 4
+              + got.numel() * 4)
+    c_ms, c_by = bound(nbytes, max(
+        evals * BLEND_BWD_FLOP_PER_EVAL / FP32_FLOP_PER_S,
+        evals * BLEND_BWD_SFU_PER_EVAL / SFU_OPS_PER_S))
+    c = dict(
+        name="blend_backward_bf16", route="cuda",
+        source="das3r_tpu_torch/csrc/blend_backward.cu",
+        replaces="das3r_tpu/ops/splat/entry_blend.py:237",
+        form="table_bf16: decoded at both reads of the table; the "
+             "gradient is the f32 table's (JAX: _load_attrs at :248, _bwd "
+             "at :510)",
+        max_abs_err=float((got - want).abs().max()), err_over_max_g=rel,
+        ms=(turns[1] + turns[2]) / 2, device_ms=(dev_turns[1] + dev_turns[2])
+        / 2, f32_ms=(turns[0] + turns[3]) / 2,
+        f32_device_ms=(dev_turns[0] + dev_turns[3]) / 2,
+        ms_turns_f32_bf16_bf16_f32=turns,
+        device_ms_turns_f32_bf16_bf16_f32=dev_turns,
+        plain_ms=time_ms(lambda: eb.blend_backward_plain(
+            eb.decode_bf16_table(t16), *stream, plain.tfinal, plain.tin,
+            g_cpre, g_tfinal)),
+        library_ms=None, library_device_ms=None, bound_ms=c_ms,
+        bound_by=c_by, pixel_entry_evals=evals, entries_needed=n_slots,
+        bytes=nbytes)
+    return [b, c]
+
+
+def bf16_ranges(bundle, dev) -> dict:
+    """View 0 of the trainer's bundle as 2 tile ranges through B-bf16 in
+    its tile-range form, reassembled bitwise the whole-image B-bf16."""
+    import torch
+    from das3r_tpu_torch.ops.splat import binning
+    from das3r_tpu_torch.ops.splat import entry_blend as eb
+    from das3r_tpu_torch.ops.splat.rasterize import (range_capacity,
+                                                     range_tiles)
+
+    s = dataclasses.replace(bundle.settings, table_bf16=True)
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, s, dev)
+    n = prep.depth.shape[0]
+    ks = binning._sorted_key_stream(prep, s)
+    es = binning.entry_stream_from_keys(ks, s, n,
+                                        binning.entry_stream_cap(s, n))
+    attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                      prep.opacity[:, None]], 1)
+    t16 = eb.encode_bf16_table(torch.cat([attr[es.order], torch.zeros_like(
+        attr[:1])]))
+    whole = eb.blend_forward_bf16(t16, es.rank, es.astart, es.count, s)
+    t_loc = range_tiles(s, 2)
+    rows = [[], []]
+    for i in range(2):
+        e = binning.entry_stream_from_keys(ks, s, n, range_capacity(s, n),
+                                           i * t_loc, t_loc)
+        for k, x in enumerate(eb.blend_forward_bf16(
+                t16, e.rank, e.astart, e.count, s, tile0=i * t_loc,
+                n_tiles_out=t_loc)):
+            rows[k].append(x)
+    torch.cuda.synchronize()
+    same = all(torch.equal(torch.cat(r)[:s.n_tiles], w)
+               for r, w in zip(rows, whole))
+    if not same:
+        raise AssertionError("2 bf16 tile ranges differ from the whole-image "
+                             "B-bf16")
+    return dict(ranges=2, t_loc=t_loc, image_bitwise=True)
+
+
+def phase_bf16_table(bundle, model: Path, data, settings, dev):
+    """The bf16 attribute table: kernels B and C in their table_bf16 form
+    on view 0 of the trainer's bundle and of the random scene
+    (``bf16_table_view``), view 0 as 2 tile ranges (``bf16_ranges``), and
+    ``TRAIN_STEPS`` train steps on the random scene with ``table_bf16``
+    (``phase_train``: finite, the loss falls, one launch of B-bf16 and
+    C-bf16 a step). Returns the kernel rows (the trainer view's, the
+    random scene's under ``random_scene``) and the steps' launches."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, bundle.settings, dev)
+        results = bf16_table_view(prep, bundle.settings, dev)
+        del prep
+        prep = view0_prep(model, data, settings, dev)
+        random_scene = bf16_table_view(prep, settings, dev)
+        del prep
+    for r, r_random in zip(results, random_scene):
+        r["scene"] = "trainer view 0"
+        r["random_scene"] = {k: r_random[k] for k in BF16_SUMMARY_KEYS
+                             if k in r_random}
+    ranges = bf16_ranges(bundle, dev)
+    torch.cuda.empty_cache()
+    launches, _ = phase_train(data, dataclasses.replace(
+        settings, table_bf16=True), dev, "bf16_train")
+    torch.cuda.empty_cache()
+    emit("bf16_table", seconds=time.perf_counter() - t0,
+         kernels={r["name"]: {k: r[k] for k in BF16_SUMMARY_KEYS if k in r}
+                  for r in results}, tile_ranges=ranges,
+         train_launches=launches)
+    return results, launches
 
 
 def phase_trainer_scene(dev):
@@ -1323,6 +1640,132 @@ def sharded_tile_ranges(bundle, dev) -> dict:
     return out
 
 
+def window_tile_ranges(bundle, k_probe: int, dev) -> dict:
+    """View 0 of the trainer's bundle on the [T, K] window path (K from
+    the probe) blended as 2 and 4 ranges of window rows by kernels D and E
+    in their tile-range form (``rasterize.window_range``), in one process:
+    the reassembled colours bitwise the whole-image D's, the summed
+    gradients of the depth-rank table and of bg within
+    ``RANGE_GRAD_TOL`` x max|g| of the whole image's; per range count D's
+    and E's ``ms`` (all ranges in turn) and ``device_ms`` (each range's
+    kernel alone, summed) beside the whole image's, and each range's
+    bound."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.ops.splat import binning, window_blend
+    from das3r_tpu_torch.ops.splat.rasterize import range_tiles, window_range
+
+    s = dataclasses.replace(bundle.settings, max_per_tile=k_probe,
+                            entry_stream=False)
+    with torch.no_grad():
+        prep = trainer_view0_prep(bundle, s, dev)
+        bins = binning.bin_gaussians(prep, s)
+        attr = torch.cat([prep.mean2d, prep.conic, prep.color,
+                          prep.opacity[:, None]], 1)[bins.order]
+    del prep
+    bg = torch.tensor(BF16_BG, device=dev)
+    P = s.tile * s.tile
+    cot = torch.as_tensor(np.random.default_rng(SEED + 10).normal(
+        size=(s.n_tiles, P, 3)).astype(np.float32), device=dev)
+    chunk = window_blend._pick_chunk(k_probe)
+
+    def render(n_ranges):
+        """(colours [T, P, 3], g_attr, g_bg, each range's (attrs, count,
+        delta, colours))"""
+        a = attr.clone().requires_grad_(True)
+        b = bg.clone().requires_grad_(True)
+        rows = [window_range(a, bins, b, s, n_ranges, i)
+                for i in range(n_ranges)]
+        colors = torch.cat(rows)[:s.n_tiles]
+        g_a, g_b = torch.autograd.grad(colors, (a, b), cot)
+        return colors.detach(), g_a, g_b
+
+    def range_args(n_ranges, i):
+        t_loc = range_tiles(s, n_ranges)
+        t0 = i * t_loc
+        count = range_rows(bins.count, t0, t_loc)
+        delta = range_rows(bins.delta, t0, t_loc)
+        attrs = attr[range_rows(bins.rank, t0, t_loc)].transpose(
+            1, 2).contiguous()
+        return attrs, count, delta, t0, t_loc
+
+    def d_call(args):
+        attrs, count, delta, t0, _ = args
+        return window_blend.window_forward(attrs, count, delta, bg, s, t0)
+
+    def e_call(args, fwd):
+        attrs, count, delta, t0, t_loc = args
+        g = range_rows(cot, t0, t_loc)
+        return window_blend.window_backward(attrs, count, delta, bg, g,
+                                            fwd[1], fwd[2], s, t0)
+
+    def bounds(args, fwd):
+        attrs, count, delta, _, _ = args
+        slots, n_vis = visited_chunk_work(count, delta, fwd[2], chunk,
+                                          s.transmittance_eps)
+        evals = int(slots.sum()) * P
+        d_bytes = (n_vis * chunk * 9 * 4 + count.numel() * 8
+                   + sum(x.numel() * 4 for x in fwd))
+        e_bytes = d_bytes + attrs.numel() * 4
+        return (bound(d_bytes, max(evals * BLEND_FLOP_PER_EVAL
+                                   / FP32_FLOP_PER_S,
+                                   evals / SFU_OPS_PER_S)),
+                bound(e_bytes, max(evals * WINDOW_BWD_FLOP_PER_EVAL
+                                   / FP32_FLOP_PER_S,
+                                   evals * WINDOW_BWD_SFU_PER_EVAL
+                                   / SFU_OPS_PER_S)))
+
+    colors, g_a, g_b = render(1)
+    whole_args = range_args(1, 0)
+    whole_fwd = d_call(whole_args)
+    (d_b, _), (e_b, _) = bounds(whole_args, whole_fwd)
+    out = {"whole": dict(
+        d_ms=time_ms(lambda: d_call(whole_args)),
+        d_device_ms=device_ms(lambda: d_call(whole_args),
+                              "window_forward_kernel")["device_ms"],
+        e_ms=time_ms(lambda: e_call(whole_args, whole_fwd)),
+        e_device_ms=device_ms(lambda: e_call(whole_args, whole_fwd),
+                              "window_backward_kernel")["device_ms"],
+        d_bound_ms=d_b, e_bound_ms=e_b)}
+    for n_ranges in WINDOW_RANGES:
+        got, g_a2, g_b2 = render(n_ranges)
+        torch.cuda.synchronize()
+        if not torch.equal(got, colors):
+            raise AssertionError(
+                f"{n_ranges} window ranges: the reassembled colours differ "
+                f"from the whole-image D on {int((got != colors).sum())} "
+                f"values")
+        rel = {k: float((g_a2[:, c] - g_a[:, c]).abs().max()
+                        / g_a[:, c].abs().max()) for k, c in GROUPS.items()}
+        rel["bg"] = float((g_b2 - g_b).abs().max() / g_b.abs().max())
+        if not max(rel.values()) <= RANGE_GRAD_TOL:
+            raise AssertionError(f"{n_ranges} window ranges: summed "
+                                 f"gradients err / max|g| {rel} > "
+                                 f"{RANGE_GRAD_TOL}")
+        runs = [range_args(n_ranges, i) for i in range(n_ranges)]
+        fwds = [d_call(a) for a in runs]
+        per_range = []
+        for a, f in zip(runs, fwds):
+            (d_b, d_by), (e_b, e_by) = bounds(a, f)
+            per_range.append(dict(
+                tile0=a[3], live_slots=int(a[1].sum()),
+                d_device_ms=device_ms(lambda a=a: d_call(a),
+                                      "window_forward_kernel")["device_ms"],
+                e_device_ms=device_ms(lambda a=a, f=f: e_call(a, f),
+                                      "window_backward_kernel")["device_ms"],
+                d_bound_ms=d_b, d_bound_by=d_by, e_bound_ms=e_b,
+                e_bound_by=e_by))
+        out[f"ranges_{n_ranges}"] = dict(
+            t_loc=runs[0][4], padded_tiles=n_ranges * runs[0][4] - s.n_tiles,
+            d_ms=time_ms(lambda: [d_call(a) for a in runs]),
+            e_ms=time_ms(lambda: [e_call(a, f) for a, f in zip(runs, fwds)]),
+            d_device_ms=sum(r["d_device_ms"] for r in per_range),
+            e_device_ms=sum(r["e_device_ms"] for r in per_range),
+            grad_err_over_max_g=rel, colors_bitwise=True,
+            per_range=per_range)
+    return out
+
+
 def sharded_rank(rank: int, work: str, device: str) -> None:
     """One of the two ranks of ``sharded_steps``, in a process of its own
     on ``device`` (``cuda``: both ranks on card 0): for the meshes (tile=2) and (gauss=2), the port's
@@ -1372,7 +1815,7 @@ def sharded_rank(rank: int, work: str, device: str) -> None:
                 meta = sharded.shard_meta(meta, mesh)
             return state, meta
 
-        def run(mesh, gauss_axis):
+        def run(mesh, gauss_axis, settings):
             state, meta = fresh(mesh, gauss_axis)
             step = sharded.make_sharded_train_step(
                 mesh, settings, cfg, gauss_axis=gauss_axis, device=dev)
@@ -1406,11 +1849,15 @@ def sharded_rank(rank: int, work: str, device: str) -> None:
 
         out = dict(rank=rank, backend=backend,
                    note="two ranks on one card: not a scaling number")
-        for name, kw, gauss_axis in (("tile_2", dict(tile=2), None),
-                                     ("gauss_2", dict(gauss=2), "gauss")):
+        window = dataclasses.replace(settings, entry_stream=False,
+                                     max_per_tile=scene["window_k"])
+        for name, kw, gauss_axis, rs in (
+                ("tile_2", dict(tile=2), None, settings),
+                ("gauss_2", dict(gauss=2), "gauss", settings),
+                ("tile_2_window", dict(tile=2), None, window)):
             mesh = make_mesh(**kw)
-            ref = run(make_mesh(world_size=1), None)
-            got = run(mesh, gauss_axis)
+            ref = run(make_mesh(world_size=1), None, rs)
+            got = run(mesh, gauss_axis, rs)
             rows = (sharded.gauss_rows(mesh, ref["state"].params.xyz.shape[0])
                     if gauss_axis else slice(None))
 
@@ -1462,11 +1909,11 @@ def sharded_rank(rank: int, work: str, device: str) -> None:
         dist.destroy_process_group()
 
 
-def sharded_steps(bundle, dev) -> list[dict]:
+def sharded_steps(bundle, k_probe: int, dev) -> list[dict]:
     """``parallel.sharded.make_sharded_train_step`` on the trainer's scene
     in two gloo processes that share ``dev`` (``cuda``: card 0;
     ``sharded_rank``), spawned after the kernels are built; each rank's
-    results."""
+    results. The window path's steps take K = ``k_probe``."""
     import dataclasses
 
     import torch
@@ -1485,7 +1932,8 @@ def sharded_steps(bundle, dev) -> list[dict]:
                     gts=torch.as_tensor(data.images[:SHARDED_STEPS]),
                     fovx=torch.as_tensor(data.fovx[:SHARDED_STEPS]),
                     fovy=torch.as_tensor(data.fovy[:SHARDED_STEPS]),
-                    settings=dataclasses.asdict(bundle.settings)),
+                    settings=dataclasses.asdict(bundle.settings),
+                    window_k=k_probe),
                work / "scene.pt")
     ctx = mp.start_processes(sharded_rank, args=(str(work), str(dev)),
                              nprocs=2,
@@ -1504,39 +1952,113 @@ def sharded_steps(bundle, dev) -> list[dict]:
 
 
 def range_fields(ranges: dict, key: str) -> dict:
-    """Kernel B's (``key`` "b") or C's ("c") tile-range numbers for the
-    kernels line: per range count, all ranges' ``ms`` and ``device_ms``
-    and the largest bound of one range."""
+    """Kernel B's (``key`` "b"), C's ("c"), D's ("d") or E's ("e")
+    tile-range numbers for the kernels line: per range count, all ranges'
+    ``ms`` and ``device_ms`` and the largest bound of one range."""
     return {name: dict(ms=v[f"{key}_ms"], device_ms=v[f"{key}_device_ms"],
                        one_range_bound_ms=max(x[f"{key}_bound_ms"]
                                               for x in v["per_range"]))
             for name, v in ranges.items() if name != "whole"}
 
 
-def phase_sharded(bundle, dev):
+def phase_sharded(bundle, k_probe: int, dev):
     """Multi-device training on the trainer's scene: its view 0 as tile
-    ranges in one process (``sharded_tile_ranges``), then the sharded
+    ranges in one process, on the entry stream (``sharded_tile_ranges``)
+    and on the window path (``window_tile_ranges``), then the sharded
     step on two ranks sharing the card (``sharded_steps``). Returns the
-    tile-range results and the sharded steps' launches of each kernel,
-    summed over the ranks."""
+    tile-range results of both paths and the sharded steps' launches of
+    each kernel, summed over the ranks: on the entry stream (tile=2 and
+    gauss=2) and on the window path (tile=2)."""
     import torch
     t0 = time.perf_counter()
     ranges = sharded_tile_ranges(bundle, dev)
+    torch.cuda.empty_cache()
+    win_ranges = window_tile_ranges(bundle, k_probe, dev)
     ranges_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    ranks = sharded_steps(bundle, dev)
+    ranks = sharded_steps(bundle, k_probe, dev)
     launches = collections.Counter()
+    win_launches = collections.Counter()
     for r in ranks:
         for mesh in ("tile_2", "gauss_2"):
             launches.update(r[mesh]["launches"])
+        win_launches.update(r["tile_2_window"]["launches"])
     for name in ("extract_chunks", "blend_forward", "blend_backward"):
         if launches[name] != 4 * SHARDED_STEPS:
             raise AssertionError(f"the sharded steps launched {name} "
                                  f"{launches[name]} times")
+    for name, count in win_launches.items():
+        want = 2 * SHARDED_STEPS if name in (
+            "extract_windows", "window_blend_forward",
+            "window_blend_backward") else 0
+        if count != want:
+            raise AssertionError(f"the window path's sharded steps launched "
+                                 f"{name} {count} times")
     emit("sharded", seconds=time.perf_counter() - t0,
          tile_ranges_seconds=ranges_s, tile_ranges=ranges,
-         sharded_step=ranks, launches=dict(launches))
-    return ranges, launches
+         window_tile_ranges=win_ranges, sharded_step=ranks,
+         launches=dict(launches), window_launches=dict(win_launches))
+    return ranges, win_ranges, launches, win_launches
+
+
+def quantized_depth_view(prep, attr, s, dev) -> dict:
+    """The window path's quantized-depth binning (``depth_sort_bits`` =
+    ``QDEPTH_BITS``) on one view (``prep``, its attribute rows ``attr``,
+    window settings ``s``): the card's quantized depths, counts, overflows
+    and live window slots bitwise the CPU's (both sorts are stable, so the
+    payload of equal keys is in the same order); kernel D's colours on
+    those bins against the plain version on the CPU for the tiles of
+    ``QDEPTH_CPU_TILES`` consecutive tile rows from the image's middle,
+    within 2e-4; the binning's times beside the exact binning's."""
+    import torch
+    from das3r_tpu_torch.ops.splat import binning, window_blend
+    from das3r_tpu_torch.ops.splat.preprocess import Preprocessed
+
+    sq = dataclasses.replace(s, depth_sort_bits=QDEPTH_BITS)
+    if not binning.uses_quantized_depth(sq):
+        raise AssertionError(f"{QDEPTH_BITS}-bit keys do not fit 32 bits")
+    qb = binning.bin_gaussians(prep, sq)
+    cpu = Preprocessed(*(x.cpu() for x in prep))
+    qb_cpu = binning.bin_gaussians(cpu, sq)
+    dq = binning.quantized_depth(prep.depth, prep.binnable.bool(),
+                                 QDEPTH_BITS)
+    dq_cpu = binning.quantized_depth(cpu.depth, cpu.binnable.bool(),
+                                     QDEPTH_BITS)
+    same = torch.equal(dq.cpu(), dq_cpu)
+    for f in ("count", "full_count", "delta", "dup_overflow",
+              "entry_overflow"):
+        same &= torch.equal(getattr(qb, f).cpu(), getattr(qb_cpu, f))
+    slot = torch.arange(qb.rank.shape[1])[None, :]
+    live = slot < qb_cpu.count[:, None]
+    same &= torch.equal(qb.rank.cpu()[live], qb_cpu.rank[live])
+    if not same:
+        raise AssertionError("the quantized-depth bins differ between the "
+                             "card and the CPU")
+    bg = torch.zeros(3, device=dev)
+    attrs = attr[qb.rank].transpose(1, 2).contiguous()
+    colors, _, _ = window_blend.window_forward(attrs, qb.count, qb.delta,
+                                               bg, sq)
+    rows = QDEPTH_CPU_TILES * s.tiles_x
+    t0 = (s.tiles_y // 2) * s.tiles_x
+    part = slice(t0, t0 + rows)
+    want, _, _ = window_blend.window_forward_plain(
+        attrs[part].cpu(), qb.count[part].cpu(), qb.delta[part].cpu(),
+        bg.cpu(), sq, t0)
+    err = float((colors[part].cpu() - want).abs().max())
+    if not err <= BLEND_TOL:
+        raise AssertionError(f"quantized-depth colours against the CPU: "
+                             f"{err} > {BLEND_TOL}")
+    return dict(
+        bits=QDEPTH_BITS, bins_bitwise=True, cpu_tiles=[t0, t0 + rows],
+        colors_err_vs_cpu=err, live_slots=int(qb.count.sum()),
+        tile_overflow=int((qb.full_count > s.max_per_tile).sum()),
+        entry_overflow=int(qb.entry_overflow),
+        bin_ms=time_ms(lambda: binning.bin_gaussians(prep, sq)),
+        exact_bin_ms=time_ms(lambda: binning.bin_gaussians(prep, s)),
+        **device_ms(lambda: binning.bin_gaussians(prep, sq),
+                    key="bin_device_ms"),
+        **device_ms(lambda: binning.bin_gaussians(prep, s),
+                    key="exact_bin_device_ms"))
 
 
 def phase_window_parity(bundle, k_probe: int, dev):
@@ -1735,9 +2257,11 @@ def phase_window_parity(bundle, k_probe: int, dev):
             if not img_err <= BLEND_TOL:
                 raise AssertionError(f"window image differs from the entry "
                                      f"stream's by {img_err}")
+        qdepth = quantized_depth_view(prep, attr, s, dev)
     emit("window_parity", seconds=time.perf_counter() - t0, k_width=k_probe,
          max_tile_entries=int(full_count.max()), tile_overflow=overflow,
          image_err_vs_entry_stream=img_err, b_vs_d=b_vs_d,
+         quantized_depth=qdepth,
          d_tile_spread=results[1]["tile_spread"],
          d_blocks_per_sm=results[1]["blocks_per_sm"],
          e_err_over_max_g_on_kernel_d=rel_on_d, kernels=summary(results))
@@ -2183,6 +2707,93 @@ def synthetic_frames(name: str, n_frames: int, seed: int) -> Path:
     return frames
 
 
+def stage1_flow_net(cls, seed: int):
+    """A frozen RAFT or SEA-RAFT on seeded random weights (no checkpoint is
+    in the repository), its flow head's last convolution scaled by 0.01:
+    random weights otherwise give flows of hundreds of pixels, which the
+    flow term's gates drop whole (per pixel above 50, per edge above
+    25)."""
+    import torch
+    from das3r_tpu_torch.predictor import raft
+
+    net = cls()
+    state = raft.random_state_dict(net, seed)
+    head = ("update_block.flow_head.conv2" if cls is raft.RAFT
+            else "flow_head.2")
+    for k in ("weight", "bias"):
+        state[f"{head}.{k}"] *= 0.01
+    raft.load_reference_weights(net, state)
+    return net
+
+
+def stage1_flows(flow_net, images01, edges, dev) -> dict:
+    """The flow networks on stage 1's frames: classic RAFT (``flow_net``,
+    the one the run's flow term used) on one chunk of ``FLOW_CHUNK``
+    edges at 20 iterations, timed (CUDA events), and its first pair on
+    the CPU within ``FLOW_CPU_BAR`` x max|CPU|, and timed with cuDNN's
+    convolutions against without (``raft.without_cudnn``), in turns;
+    SEA-RAFT "M" on the same
+    chunk at ``SEARAFT_CHECK_ITERS`` iteration, timed, and its first pair
+    on the CPU within the same bar (the CPU test's bar at that iteration
+    count; batch norm runs in eval mode, so a pair's flow does not depend
+    on the rest of its chunk)."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.predictor import raft, searaft
+
+    imgs = torch.as_tensor(np.asarray(images01, np.float32),
+                           device=dev) * 255.0
+    ei = torch.as_tensor([i for i, _ in edges[:FLOW_CHUNK]], device=dev)
+    ej = torch.as_tensor([j for _, j in edges[:FLOW_CHUNK]], device=dev)
+    a, b = imgs[ei], imgs[ej]
+    out = {}
+
+    def turns(call):
+        """(ms without cuDNN, ms with it), each the mean of two turns
+        (without, with, with, without), and the two flows' largest
+        difference: the convolution choice of ``raft.without_cudnn``."""
+        orig = raft.without_cudnn
+        ms = {False: [], True: []}
+        for cudnn_on in (False, True, True, False):
+            raft.without_cudnn = (contextlib.nullcontext if cudnn_on
+                                  else orig)
+            try:
+                ms[cudnn_on].append(time_ms(call, reps=1))
+                flow = call()
+            finally:
+                raft.without_cudnn = orig
+            ms[f"flow_{cudnn_on}"] = flow
+        diff = float((ms["flow_True"] - ms["flow_False"]).abs().max())
+        return dict(ms_without_cudnn=ms[False], ms_with_cudnn=ms[True],
+                    max_flow_diff=diff)
+
+    for name, net, iters in (
+            ("raft", flow_net, 20),
+            ("searaft", stage1_flow_net(searaft.SeaRaft, FLOW_SEED + 1),
+             SEARAFT_CHECK_ITERS)):
+        net.to(dev)
+        got = net(a, b, iters=iters)
+        ms = time_ms(lambda: net(a, b, iters=iters), reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = net.to("cpu")(a[:1].cpu(), b[:1].cpu(), iters=iters)
+        cpu_s = time.perf_counter() - t0
+        scale = float(want.abs().max())
+        rel = float((got[:1].cpu() - want).abs().max()) / max(scale, 1e-30)
+        if not (torch.isfinite(got).all() and rel <= FLOW_CPU_BAR):
+            raise AssertionError(f"{name}: card against CPU {rel} x "
+                                 f"max|CPU| > {FLOW_CPU_BAR}")
+        out[name] = dict(iters=iters, pairs=FLOW_CHUNK,
+                         ms_per_pair=ms / FLOW_CHUNK, chunk_ms=ms,
+                         card_vs_cpu_rel=rel, max_flow=scale,
+                         cpu_pair_seconds=cpu_s)
+        if name == "raft":
+            net.to(dev)
+            out[name]["cudnn_turns"] = turns(lambda: net(a, b, iters=iters))
+        del net
+    return out
+
+
 def phase_stage1(sd, dev):
     """``runner.run_scene`` at DUST3R_LARGE_CONFIG on a 16-frame video;
     encode / decode timings in float32 and with a bfloat16 trunk; one pair
@@ -2195,7 +2806,8 @@ def phase_stage1(sd, dev):
     from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
     from das3r_tpu_torch.models.croco.dust3r import (DUST3R_LARGE_CONFIG,
                                                      AsymmetricCroCo3D)
-    from das3r_tpu_torch.predictor import alignment, inference, pairs, runner
+    from das3r_tpu_torch.predictor import (alignment, inference,
+                                           mask_refine, pairs, raft, runner)
 
     frames = synthetic_frames("stage1", STAGE1_FRAMES, SEED + 11)
     out_dir = WORK / "stage1_out"
@@ -2218,10 +2830,12 @@ def phase_stage1(sd, dev):
                        for f in dataclasses.fields(params)}))
         return optimize(params, *args, **kw)
     alignment.optimize = keep_args
+    flow_net = stage1_flow_net(raft.RAFT, FLOW_SEED)
     try:
         res, launches = run_counted(lambda: runner.run_scene(
             str(frames), str(out_dir), model, device=dev, stats=stats,
-            verbose=progress.append))
+            verbose=progress.append, raft_params=flow_net,
+            mask_refiner=mask_refine.NeighborPropagator()))
     finally:
         alignment.optimize = optimize
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -2333,6 +2947,9 @@ def phase_stage1(sd, dev):
                 and e["pts3d_median_rel"] < STAGE1_BF16_PTS_MEDIAN_REL):
             raise AssertionError(f"bfloat16 trunk against the CPU, {v}: "
                                  f"{e}")
+    flows = stage1_flows(flow_net, images01, edges, dev)
+    del flow_net
+    torch.cuda.empty_cache()
     niter = alignment.AlignerConfig().niter
     emit("stage1", frames=STAGE1_FRAMES, height=HEIGHT, width=WIDTH,
          graph=stats["graph"], edges=stats["n_edges"], n_params=n_params,
@@ -2340,6 +2957,10 @@ def phase_stage1(sd, dev):
          peak_mem_gb=peak_gb, seconds=stats["total_s"],
          load_frames_s=stats["load_s"], inference_s=stats["inference_s"],
          align_s=stats["align_s"], save_s=stats["save_s"],
+         flow_s=stats["flow_s"], refine_s=stats["refine_s"],
+         flow_ms_per_pair_in_run=stats["flow_s"] * 1e3 / (
+             2 * stats["n_edges"]),
+         flows=flows,
          init_s=al["init_s"], to_device_s=al["to_device_s"],
          align_loop_s=al["loop_s"],
          align_ms_per_iter=al["loop_s"] * 1e3 / niter,
@@ -2456,13 +3077,23 @@ def main() -> int:
             r["random_scene"] = {k: r_random[k] for k in SUMMARY_KEYS
                                  if k in r_random}
         torch.cuda.empty_cache()
-        ranges, sharded = phase_sharded(bundle, "cuda")
+        bf16_rows, bf16_train = phase_bf16_table(bundle, model, data,
+                                                 settings, "cuda")
+        results += bf16_rows
+        ranges, win_ranges, sharded, sharded_win = phase_sharded(
+            bundle, k_probe, "cuda")
         for r in results:
             key = {"blend_forward": "b", "blend_backward": "c"}.get(r["name"])
             if key:
                 r["tile_range"] = range_fields(ranges, key)
         torch.cuda.empty_cache()
-        results += phase_window_parity(bundle, k_probe, "cuda")
+        win_rows = phase_window_parity(bundle, k_probe, "cuda")
+        for r in win_rows:
+            key = {"window_blend_forward": "d",
+                   "window_blend_backward": "e"}.get(r["name"])
+            if key:
+                r["tile_range"] = range_fields(win_ranges, key)
+        results += win_rows
         torch.cuda.empty_cache()
         phase_split_table(bundle, probe_stats, model, data, settings, "cuda")
         trainer, entry_model = phase_trainer(bundle, k_probe, "cuda")
@@ -2499,7 +3130,10 @@ def main() -> int:
             "gui_24_panels": gui.get(k, 0),
             "stage1_16_frames": stage1[k],
             f"pipeline_{PIPELINE_ITERS}_iters": pipe[k],
-            f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0)}
+            f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0),
+            f"sharded_window_2_ranks_{SHARDED_STEPS}_steps":
+                sharded_win.get(k, 0),
+            f"bf16_train_{TRAIN_STEPS}_steps": bf16_train[k]}
         r["launches"] = sum(r["launches_by_path"].values())
         r["card"], r["power_limit"] = name, power
     emit("done", seconds=time.perf_counter() - t_all)

@@ -36,6 +36,14 @@
 // reads and writes every per-tile and per-pixel array at t alone. A tile
 // past the image has count 0 and n_last 0, so it returns at once.
 //
+// The table_bf16 form (blend_backward_bf16_launch) reads the [N + 1, 11]
+// bf16 table of entry_table.cuh, decoded to f32 at both of its reads (the
+// first batch and each next batch); the rest is the f32 form. It replaces
+// the TPU kernel's table_bf16 form, which decodes in _load_attrs
+// (entry_blend.py:71-81, called at :248). The gradient it writes is that of
+// the f32 table [N + 1, 9], from the decoded values: straight through the
+// encode, as JAX's custom_vjp gives it (_bwd, entry_blend.py:510-523).
+//
 // Bound on the H100: operations, ~55 FP32 and an exp and a reciprocal per
 // seen pixel-entry; the bytes are the table rows, ranks and per-pixel
 // vectors, read once per block. The design before this one reduced the
@@ -51,6 +59,7 @@
 // tile balances poorly when a few tiles hold most entries.
 #include "blend_backward_common.cuh"
 #include "blend_step.cuh"
+#include "entry_table.cuh"
 
 namespace {
 
@@ -68,8 +77,9 @@ static_assert(kSharedBytes <= 48 * 1024, "C's launch needs no opt-in");
 constexpr int kStage = (kNB * kAttr + kPix - 1) / kPix;
 
 // five blocks per SM, as the shared memory allows: at most 48 registers
+template <typename Table>
 __global__ void __launch_bounds__(kPix, 5)
-blend_backward_kernel(const float* __restrict__ table,
+blend_backward_kernel(const Table table,
                       const int32_t* __restrict__ rank,
                       const int32_t* __restrict__ astart,
                       const int32_t* __restrict__ count, int tile0,
@@ -122,7 +132,7 @@ blend_backward_kernel(const float* __restrict__ table,
     const int i = p + u * kPix;
     if (i < min(kNB, end - b_first) * kAttr) {
       nr[u] = rank[beg + b_first + i / kAttr];
-      nv[u] = table[(int64_t)nr[u] * kAttr + i % kAttr];
+      nv[u] = table(nr[u], i % kAttr);
     }
   }
 
@@ -181,7 +191,7 @@ blend_backward_kernel(const float* __restrict__ table,
     for (int u = 0; u < kStage; ++u) {
       const int i = p + u * kPix;
       if (next && i < kNB * kAttr)
-        nv[u] = table[(int64_t)nr[u] * kAttr + i % kAttr];
+        nv[u] = table(nr[u], i % kAttr);
     }
     if (!__syncthreads_or(any)) continue;  // no pixel saw the batch
 
@@ -195,8 +205,25 @@ blend_backward_kernel(const float* __restrict__ table,
   }
 }
 
+template <typename Table>
+int launch(Table table, const void* rank, const void* astart,
+           const void* count, int n_tiles, int tile0, int tiles_x,
+           float alpha_clip, float alpha_floor, const void* tfinal,
+           const void* n_last, const void* g_cpre, const void* g_tfinal,
+           void* g_table, void* stream) {
+  if (n_tiles == 0) return 0;
+  blend_backward_kernel<Table>
+      <<<n_tiles, kPix, kSharedBytes, (cudaStream_t)stream>>>(
+          table, (const int32_t*)rank, (const int32_t*)astart,
+          (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor,
+          (const float*)tfinal, (const int32_t*)n_last, (const float*)g_cpre,
+          (const float*)g_tfinal, (float*)g_table);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// table: [N + 1, 9] f32; g_table: [N + 1, 9] f32
 extern "C" int blend_backward_launch(const void* table, const void* rank,
                                      const void* astart, const void* count,
                                      int n_tiles, int tile0, int tiles_x,
@@ -204,16 +231,25 @@ extern "C" int blend_backward_launch(const void* table, const void* rank,
                                      const void* tfinal, const void* n_last,
                                      const void* g_cpre, const void* g_tfinal,
                                      void* g_table, void* stream) {
-  if (n_tiles == 0) return 0;
-  blend_backward_kernel<<<n_tiles, kPix, kSharedBytes, (cudaStream_t)stream>>>(
-      (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
-      (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor,
-      (const float*)tfinal, (const int32_t*)n_last, (const float*)g_cpre,
-      (const float*)g_tfinal, (float*)g_table);
-  return (int)cudaGetLastError();
+  return launch(entry_table::TableF32{(const float*)table}, rank, astart,
+                count, n_tiles, tile0, tiles_x, alpha_clip, alpha_floor,
+                tfinal, n_last, g_cpre, g_tfinal, g_table, stream);
 }
 
-// Blocks resident per SM (chunk is not used: the batch has a fixed size).
+// table: [N + 1, 11] bf16 (entry_table.cuh); g_table: [N + 1, 9] f32
+extern "C" int blend_backward_bf16_launch(
+    const void* table, const void* rank, const void* astart,
+    const void* count, int n_tiles, int tile0, int tiles_x, float alpha_clip,
+    float alpha_floor, const void* tfinal, const void* n_last,
+    const void* g_cpre, const void* g_tfinal, void* g_table, void* stream) {
+  return launch(entry_table::TableBf16{(const uint16_t*)table}, rank, astart,
+                count, n_tiles, tile0, tiles_x, alpha_clip, alpha_floor,
+                tfinal, n_last, g_cpre, g_tfinal, g_table, stream);
+}
+
+// Blocks resident per SM of the f32 form (chunk is not used: the batch has
+// a fixed size).
 extern "C" int blend_backward_blocks_per_sm(int chunk) {
-  return blocks_per_sm(blend_backward_kernel, kSharedBytes);
+  return blocks_per_sm(blend_backward_kernel<entry_table::TableF32>,
+                       kSharedBytes);
 }

@@ -66,6 +66,13 @@
 // range hold rank N, the zero row; no rank past count[t] is read, and no
 // entry past it blended.
 //
+// The table_bf16 form (blend_forward_bf16_launch) takes the [N + 1, 11] bf16
+// table of entry_table.cuh and decodes each row to f32 where it is staged;
+// everything after the staging is the f32 form's. It replaces the same TPU
+// kernel in its table_bf16 form, which decodes in _load_attrs
+// (entry_blend.py:71-81). It saves no time here: the kernel is bound by the
+// step's operations, and the table rows are read once per entry and block.
+//
 // A launch blends n_tiles tiles from global tile tile0 on (the tile-sharded
 // render blends one range per launch; the whole image is tile0 = 0). Block
 // t takes its pixel coordinates from tile tile0 + t; count, astart, the
@@ -76,6 +83,7 @@
 #include <stdint.h>
 
 #include "blend_step.cuh"
+#include "entry_table.cuh"
 
 namespace {
 
@@ -91,9 +99,9 @@ constexpr int kPix = kTile * kTile;  // pixels of a tile
 constexpr int kThreads = kPix / 2;   // two pixels each: p and p + kThreads
 constexpr int kNB = kThreads;        // entries per batch: one per thread
 
-template <bool kLast>
+template <bool kLast, typename Table>
 __global__ void __launch_bounds__(kThreads)
-blend_forward_kernel(const float* __restrict__ table,
+blend_forward_kernel(const Table table,
                      const int32_t* __restrict__ rank,
                      const int32_t* __restrict__ astart,
                      const int32_t* __restrict__ count, int tile0,
@@ -120,10 +128,10 @@ blend_forward_kernel(const float* __restrict__ table,
     // the writes below.
     if (!__syncthreads_or(tr0 >= eps || tr1 >= eps)) break;
     if (b + q < cnt) {
-      const float* row = table + (int64_t)rank_t[b + q] * kAttr;
+      const int64_t r = rank_t[b + q];
 #pragma unroll
       for (int a = 0; a < kAttr; ++a)
-        s_attr[q * kAttrPad + attr_slot(a)] = row[a];
+        s_attr[q * kAttrPad + attr_slot(a)] = table(r, a);
     }
     __syncthreads();
     // entry j of the batch into both pixels
@@ -191,30 +199,55 @@ blend_forward_kernel(const float* __restrict__ table,
   }
 }
 
+template <typename Table>
+int launch(Table table, const void* rank, const void* astart,
+           const void* count, int n_tiles, int tile0, int tiles_x,
+           float alpha_clip, float alpha_floor, float eps, void* cpre,
+           void* tfinal, void* n_last, void* stream) {
+  auto kernel = n_last != nullptr ? blend_forward_kernel<true, Table>
+                                  : blend_forward_kernel<false, Table>;
+  kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      table, (const int32_t*)rank, (const int32_t*)astart,
+      (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor, eps,
+      (float*)cpre, (float*)tfinal, (int32_t*)n_last);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// table: [N + 1, 9] f32
 extern "C" int blend_forward_launch(const void* table, const void* rank,
                                     const void* astart, const void* count,
                                     int n_tiles, int tile0, int tiles_x,
                                     float alpha_clip, float alpha_floor,
                                     float eps, void* cpre, void* tfinal,
                                     void* n_last, void* stream) {
-  auto kernel = n_last != nullptr ? blend_forward_kernel<true>
-                                  : blend_forward_kernel<false>;
-  kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int32_t*)rank, (const int32_t*)astart,
-      (const int32_t*)count, tile0, tiles_x, alpha_clip, alpha_floor, eps,
-      (float*)cpre, (float*)tfinal, (int32_t*)n_last);
-  return (int)cudaGetLastError();
+  return launch(entry_table::TableF32{(const float*)table}, rank, astart,
+                count, n_tiles, tile0, tiles_x, alpha_clip, alpha_floor, eps,
+                cpre, tfinal, n_last, stream);
 }
 
-// Blocks resident per SM of the instantiation with n_last (with_n_last
+// table: [N + 1, 11] bf16 (entry_table.cuh)
+extern "C" int blend_forward_bf16_launch(const void* table, const void* rank,
+                                         const void* astart,
+                                         const void* count, int n_tiles,
+                                         int tile0, int tiles_x,
+                                         float alpha_clip, float alpha_floor,
+                                         float eps, void* cpre, void* tfinal,
+                                         void* n_last, void* stream) {
+  return launch(entry_table::TableBf16{(const uint16_t*)table}, rank, astart,
+                count, n_tiles, tile0, tiles_x, alpha_clip, alpha_floor, eps,
+                cpre, tfinal, n_last, stream);
+}
+
+// Blocks resident per SM of the f32 instantiation with n_last (with_n_last
 // != 0, training) or without it (serving).
 extern "C" int blend_forward_blocks_per_sm(int with_n_last) {
+  using entry_table::TableF32;
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, with_n_last ? blend_forward_kernel<true>
-                          : blend_forward_kernel<false>,
+          &n, with_n_last ? blend_forward_kernel<true, TableF32>
+                          : blend_forward_kernel<false, TableF32>,
           kThreads, 0) != cudaSuccess)
     return -1;
   return n;

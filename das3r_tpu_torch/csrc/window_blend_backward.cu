@@ -50,6 +50,11 @@
 // exps: with branches, the boundary replay and the second replay took
 // 0.76 and 0.53 ms of 3.19 on the trainer scene of chip_smoke.py (H100
 // 80GB HBM3, 700 W), the price of not storing the chunk's transmittances.
+//
+// A launch blends n_tiles window rows whose first is global tile tile0 (the
+// tile-sharded window render, rasterize.py::_windows_sharded, blends one
+// range per launch; the whole image is tile0 = 0). Block t takes its pixel
+// coordinates from tile tile0 + t and reads and writes row t alone.
 #include "blend_backward_common.cuh"
 #include "blend_step.cuh"
 
@@ -79,7 +84,8 @@ window_backward_kernel(const float* __restrict__ attrs,
                        const float* __restrict__ g_colors,
                        const float* __restrict__ tfinal,
                        const float* __restrict__ tin, int k_width, int chunk,
-                       int tiles_x, float alpha_clip, float alpha_floor,
+                       int tile0, int tiles_x, float alpha_clip,
+                       float alpha_floor,
                        float eps, float* __restrict__ g_attrs) {
   extern __shared__ float smem[];
   float* s_dp = smem;                          // [kNB][kRow]; the partials
@@ -87,9 +93,10 @@ window_backward_kernel(const float* __restrict__ attrs,
   float* s_g = s_w + kNB * kRow;               // [3][kPix]
   float* s_tb = s_g + 3 * kPix;                // [kMaxSub][kPix]
   float* s_attr = s_tb + kMaxSub * kPix;       // [chunk][kAttrPad]
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;   // local tile: the rows it reads and writes
+  const int tg = tile0 + t;   // global tile: its pixel coordinates
   const int p = threadIdx.x;
-  const int tx0 = (t % tiles_x) * kTile, ty0 = (t / tiles_x) * kTile;
+  const int tx0 = (tg % tiles_x) * kTile, ty0 = (tg / tiles_x) * kTile;
   const float px = (float)(tx0 + p % kTile);
   const float py = (float)(ty0 + p / kTile);
   const int cnt = count[t];
@@ -208,8 +215,8 @@ window_backward_kernel(const float* __restrict__ attrs,
 extern "C" int window_blend_backward_launch(
     const void* attrs, const void* count, const void* delta, const void* bg,
     const void* g_colors, const void* tfinal, const void* tin, int n_tiles,
-    int k_width, int chunk, int tiles_x, float alpha_clip, float alpha_floor,
-    float eps, void* g_attrs, void* stream) {
+    int k_width, int chunk, int tile0, int tiles_x, float alpha_clip,
+    float alpha_floor, float eps, void* g_attrs, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk || k_width % chunk != 0 ||
       (chunk & (chunk - 1)) != 0)
     return -1;
@@ -220,7 +227,8 @@ extern "C" int window_blend_backward_launch(
   window_backward_kernel<<<n_tiles, kPix, smem, (cudaStream_t)stream>>>(
       (const float*)attrs, (const int32_t*)count, (const int32_t*)delta,
       (const float*)bg, (const float*)g_colors, (const float*)tfinal,
-      (const float*)tin, k_width, chunk, tiles_x, alpha_clip, alpha_floor,
+      (const float*)tin, k_width, chunk, tile0, tiles_x, alpha_clip,
+      alpha_floor,
       eps, (float*)g_attrs);
   return (int)cudaGetLastError();
 }

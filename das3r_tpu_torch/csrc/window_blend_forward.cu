@@ -47,6 +47,11 @@
 // thread and 256 threads of one pixel ran level. Half-tile blocks, which
 // even out the 4.4 tiles per SM, gained nothing: the warps per scheduler
 // stay as many, and the kernel is bound by their instruction issue.
+//
+// A launch blends n_tiles window rows whose first is global tile tile0 (the
+// tile-sharded window render, rasterize.py::_windows_sharded, blends one
+// range per launch; the whole image is tile0 = 0). Block t takes its pixel
+// coordinates from tile tile0 + t and reads and writes row t alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,14 +98,16 @@ window_forward_kernel(const float* __restrict__ attrs,
                       const int32_t* __restrict__ count,
                       const int32_t* __restrict__ delta,
                       const float* __restrict__ bg, int k_width, int chunk,
-                      int tiles_x, float alpha_clip, float alpha_floor,
-                      float eps, float* __restrict__ colors,
-                      float* __restrict__ tfinal, float* __restrict__ tin) {
+                      int tile0, int tiles_x, float alpha_clip,
+                      float alpha_floor, float eps,
+                      float* __restrict__ colors, float* __restrict__ tfinal,
+                      float* __restrict__ tin) {
   __shared__ __align__(16) float s_attr[2][kBuf];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;   // local tile: the rows it reads and writes
+  const int tg = tile0 + t;   // global tile: its pixel coordinates
   const int q = threadIdx.x;  // pixels q and q + kThreads of the tile
-  const float px = (float)((t % tiles_x) * kTile + q % kTile);
-  const float py0 = (float)((t / tiles_x) * kTile + q / kTile);
+  const float px = (float)((tg % tiles_x) * kTile + q % kTile);
+  const float py0 = (float)((tg / tiles_x) * kTile + q / kTile);
   const float py1 = py0 + (float)(kThreads / kTile);
   const int cnt = count[t];
   const int del = delta[t];
@@ -167,14 +174,15 @@ window_forward_kernel(const float* __restrict__ attrs,
 
 extern "C" int window_blend_forward_launch(
     const void* attrs, const void* count, const void* delta, const void* bg,
-    int n_tiles, int k_width, int chunk, int tiles_x, float alpha_clip,
-    float alpha_floor, float eps, void* colors, void* tfinal, void* tin,
-    void* stream) {
+    int n_tiles, int k_width, int chunk, int tile0, int tiles_x,
+    float alpha_clip, float alpha_floor, float eps, void* colors,
+    void* tfinal, void* tin, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk || k_width % chunk != 0) return -1;
   if (n_tiles == 0) return 0;
   window_forward_kernel<<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)attrs, (const int32_t*)count, (const int32_t*)delta,
-      (const float*)bg, k_width, chunk, tiles_x, alpha_clip, alpha_floor, eps,
+      (const float*)bg, k_width, chunk, tile0, tiles_x, alpha_clip,
+      alpha_floor, eps,
       (float*)colors, (float*)tfinal, (float*)tin);
   return (int)cudaGetLastError();
 }

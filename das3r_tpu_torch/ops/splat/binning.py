@@ -26,8 +26,10 @@ Differences from the JAX package, by design:
 * The split-width duplication table (``heavy_rows_cap`` set, ``0 <
   light_dup_width < max_tiles_per_gaussian``) emits the same keys as the
   JAX one, and reports ``entry_overflow`` without truncating, as JAX does
-  on that branch. ``depth_sort_bits > 0`` (the quantized-depth binning)
-  is not ported.
+  on that branch.
+* The quantized-depth window binning (``depth_sort_bits > 0``,
+  ``_bin_quantized_depth``) sorts its keys with a stable sort, so equal
+  keys keep the Gaussian order; JAX's sort leaves their order unspecified.
 
 Every function here runs on detached inputs: gradients flow through the
 gathered attribute values, never through the indices.
@@ -506,14 +508,96 @@ def _windows(sorted_keys: torch.Tensor, nbits: int, n: int, n_tiles: int,
     return rank, delta, count, full_count
 
 
+def quantized_depth(depth: torch.Tensor, alive: torch.Tensor,
+                    bits: int) -> torch.Tensor:
+    """[N] int64 depth quantized to ``bits`` over the live depth range, in
+    f32 in the JAX package's order of operations (binning.py:728-732):
+    (depth - dmin) * ((2^bits - 1) / max(dmax - dmin, 1e-12)), clipped to
+    [0, 2^bits - 1] and truncated."""
+    inf = torch.tensor(float("inf"), device=depth.device)
+    dmin = torch.where(alive, depth, inf).min()
+    dmax = torch.where(alive, depth, -inf).max()
+    scale = (2.0**bits - 1.0) / torch.clamp_min(dmax - dmin, 1e-12)
+    return torch.clamp((depth - dmin) * scale, 0.0,
+                       2.0**bits - 1.0).to(torch.int64)
+
+
+def _bin_quantized_depth(prep: Preprocessed,
+                         settings: RasterSettings) -> TileBins:
+    """The [T, K] windows from ``tile << bits | quantized depth`` keys
+    (``_bin_quantized_depth`` of the JAX package, binning.py:714-778): no
+    depth argsort; the sorted payload is the Gaussian id, so ``rank`` is
+    the Gaussian index and ``order`` the identity. The cells are the rect
+    cells (no tight-binning cull), in a buffer of ``max_total_entries``
+    (default N * D) filled in Gaussian order: the entries past it are
+    dropped and counted in ``entry_overflow``. The sort is stable (module
+    docstring)."""
+    s = settings
+    n = prep.depth.shape[0]
+    dev = prep.depth.device
+    d_cap = s.max_tiles_per_gaussian
+    bits = s.depth_sort_bits
+    e_cap = s.max_total_entries or n * d_cap
+    alive = prep.binnable.to(torch.bool)
+    depth_q = quantized_depth(prep.depth, alive, bits)
+
+    width = torch.clamp_min(prep.rect_max[:, 0] - prep.rect_min[:, 0], 1)
+    ntt = torch.where(alive, torch.clamp_max(prep.n_tiles_touched, d_cap),
+                      torch.zeros_like(prep.n_tiles_touched)).to(torch.int64)
+    dup_overflow = torch.sum(prep.n_tiles_touched > d_cap)
+    d_idx = torch.arange(d_cap, dtype=torch.int64, device=dev)[None, :]
+    w = width.to(torch.int64)[:, None]
+    ty = prep.rect_min[:, 1:2].to(torch.int64) + d_idx // w
+    tx = prep.rect_min[:, 0:1].to(torch.int64) + d_idx % w
+    key = ((ty * s.tiles_x + tx) << bits) | depth_q[:, None]
+    base = torch.cumsum(ntt, 0) - ntt
+    in_buf = (alive[:, None] & (d_idx < ntt[:, None])
+              & (base[:, None] + d_idx < e_cap))
+    entry_overflow = torch.clamp_min(ntt.sum() - e_cap, 0)
+    gid = torch.arange(n, dtype=torch.int64, device=dev)[:, None].expand(
+        n, d_cap)
+    # The buffer's live prefix in Gaussian order; JAX's sentinels sort
+    # after every live key and are never read as live.
+    sorted_key, perm = torch.sort(key[in_buf], stable=True)
+    sorted_gid = gid[in_buf][perm]
+
+    tile_ids = torch.arange(s.n_tiles + 1, dtype=torch.int64, device=dev)
+    bounds = torch.searchsorted(sorted_key >> bits, tile_ids, side="left")
+    start = bounds[:-1]
+    full_count = (bounds[1:] - start).to(torch.int32)
+    K = s.max_per_tile
+    slot = torch.arange(K, dtype=torch.int64, device=dev)[None, :]
+    padded = torch.cat([sorted_gid, sorted_gid.new_zeros(K)])
+    rank = torch.clamp_max(padded[start[:, None] + slot], n - 1).to(
+        torch.int32)
+    zeros = torch.zeros((), dtype=torch.int64, device=dev)
+    return TileBins(rank=rank,
+                    delta=torch.zeros(s.n_tiles, dtype=torch.int32,
+                                      device=dev),
+                    order=torch.arange(n, dtype=torch.int64, device=dev),
+                    count=torch.clamp_max(full_count, K),
+                    full_count=full_count, dup_overflow=dup_overflow,
+                    entry_overflow=entry_overflow, heavy_overflow=zeros)
+
+
+def uses_quantized_depth(settings: RasterSettings) -> bool:
+    """Whether ``bin_gaussians`` takes the quantized-depth binning: as in
+    the JAX package, when ``depth_sort_bits > 0`` and its keys fit 32
+    bits; else the exact path."""
+    s = settings
+    return (s.depth_sort_bits > 0
+            and (s.n_tiles + 1) << s.depth_sort_bits <= 2**32)
+
+
 def bin_gaussians(prep: Preprocessed, settings: RasterSettings) -> TileBins:
     """Bin into [T, K] windows of ``settings.max_per_tile`` slots; a tile
-    with more entries keeps its K nearest (``tile_overflow``)."""
+    with more entries keeps its K nearest (``tile_overflow``). With
+    ``depth_sort_bits`` (``uses_quantized_depth``) the keys carry the
+    quantized depth (``_bin_quantized_depth``)."""
     s = settings
-    if s.depth_sort_bits > 0:
-        raise NotImplementedError(
-            "depth_sort_bits > 0 (the quantized-depth binning) is not ported "
-            "(ROADMAP.md)")
+    if uses_quantized_depth(s):
+        with record_function("das3r::bin_quantized_depth"):
+            return _bin_quantized_depth(prep, s)
     n = prep.depth.shape[0]
     if not entry_stream_supported(n, s):
         raise ValueError("(n_tiles + 1) << ceil(log2 N) exceeds the int64 key")

@@ -1,8 +1,13 @@
 """Tile-to-image assembly (``das3r_tpu/ops/splat/blend.py::assemble_image``).
 
 The port has two raster paths, the entry stream (``entry_blend``) and the
-[T, K] window path (``window_blend``), and both end here. The vectorised
-blend of the JAX package's XLA backend is not ported (ROADMAP.md).
+[T, K] window path (``window_blend``), and both end here. The JAX
+package's XLA window blends have their counterparts there:
+``blend_tiles`` computes the function of ``window_blend.
+window_forward_plain`` (tests/test_torch_window_options.py holds the two
+within 2e-4 on the same bins), and the tile-sharded ``blend_tiles_sharded``
+is ``rasterize.window_range`` on each rank of the tile group, through
+kernels D and E in their tile-range form.
 """
 from __future__ import annotations
 

@@ -32,6 +32,15 @@ image, in the padded tail of the last range, has count 0 and gives
 Attribute columns of the table:
     0: mean2d_x  1: mean2d_y  2: conic_xx  3: conic_xy  4: conic_yy
     5: color_r   6: color_g   7: color_b   8: opacity
+
+With ``settings.table_bf16`` the blend encodes the f32 table once, at N
+scale, into JAX's [N+1, 11] bf16 layout (``encode_bf16_table``) and blends
+the decoded values (``decode_bf16_table``): mean2d as a bf16 hi + lo pair,
+the rest as single bf16. Both directions take the encoded table: the
+kernels decode each row where they read it, the plain versions decode it
+whole first. The gradient is that of the f32 table, computed from the
+decoded values: straight through the encode, as the JAX package's
+``custom_vjp`` gives it.
 """
 from __future__ import annotations
 
@@ -45,6 +54,37 @@ from das3r_tpu_torch.ops.splat.binning import CHUNK, EntryStream
 from das3r_tpu_torch.ops.splat.settings import RasterSettings
 
 N_ATTR = 9
+# bf16 layout (entry_blend.py of the JAX package):
+#   0 mean_x_hi  1 mean_x_lo  2 mean_y_hi  3 mean_y_lo
+#   4 conic_xx   5 conic_xy   6 conic_yy
+#   7 color_r    8 color_g    9 color_b   10 opacity
+N_ATTR_BF16 = 11
+
+
+def encode_bf16_table(table: torch.Tensor) -> torch.Tensor:
+    """[M, 9] f32 attribute table -> [M, 11] bf16 (layout above): hi =
+    bf16(mean), lo = bf16(mean - f32(hi)), both rounded to nearest even;
+    the other columns bf16. The zero row encodes to zeros."""
+    mean = table[:, :2]
+    hi = mean.to(torch.bfloat16)
+    lo = (mean - hi.to(torch.float32)).to(torch.bfloat16)
+    rest = table[:, 2:].to(torch.bfloat16)
+    return torch.cat([hi[:, 0:1], lo[:, 0:1], hi[:, 1:2], lo[:, 1:2], rest],
+                     1).contiguous()
+
+
+def decode_bf16_table(table16: torch.Tensor) -> torch.Tensor:
+    """[M, 11] bf16 -> [M, 9] f32: mean = f32(hi) + f32(lo) in f32, the
+    rest widened (the JAX kernels' ``_load_attrs``)."""
+    raw = table16.to(torch.float32)
+    return torch.cat([raw[:, 0:1] + raw[:, 1:2], raw[:, 2:3] + raw[:, 3:4],
+                      raw[:, 4:]], 1)
+
+
+def _as_f32(table: torch.Tensor) -> torch.Tensor:
+    """The f32 table a plain version blends: a bf16 table decoded."""
+    return (decode_bf16_table(table) if table.dtype == torch.bfloat16
+            else table)
 
 
 class PlainBlend(NamedTuple):
@@ -261,17 +301,20 @@ def blend_backward_plain(table: torch.Tensor, rank: torch.Tensor,
 
 def _check_stream(table, rank, astart, count, settings: RasterSettings,
                   tile0: int, n_tiles_out: int | None) -> int:
-    """Raise unless the CUDA kernels can take this table and stream;
-    return the range's tile count."""
+    """Raise unless the CUDA kernels can take this table ([M, 9] f32 or
+    [M, 11] bf16) and stream; return the range's tile count."""
     s = settings
     if s.tile != 16:
         raise ValueError(f"the blend kernels need 16x16 tiles, got {s.tile}")
-    kernels.check(table, "table", torch.float32, 2)
+    bf16 = table.dtype == torch.bfloat16
+    width = N_ATTR_BF16 if bf16 else N_ATTR
+    kernels.check(table, "table", torch.bfloat16 if bf16 else torch.float32,
+                  2)
     kernels.check(rank, "rank", torch.int32, 1, table.device)
     kernels.check(astart, "astart", torch.int32, 1, table.device)
     kernels.check(count, "count", torch.int32, 1, table.device)
-    if table.shape[1] != N_ATTR:
-        raise ValueError(f"table must be [M, {N_ATTR}], got "
+    if table.shape[1] != width:
+        raise ValueError(f"table must be [M, {width}], got "
                          f"{tuple(table.shape)}")
     if astart.shape != count.shape:
         raise ValueError(f"astart {tuple(astart.shape)} != count "
@@ -304,8 +347,8 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     kernel.
     """
     if table.device.type == "cpu":
-        out = blend_forward_plain(table, rank, astart, count, settings,
-                                  tile0, n_tiles_out)
+        out = blend_forward_plain(_as_f32(table), rank, astart, count,
+                                  settings, tile0, n_tiles_out)
         if for_backward:
             return out.cpre, out.tfinal, out.n_last
         return out.cpre, out.tfinal
@@ -317,18 +360,32 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     tfinal = torch.empty(n_tiles, 1, P, device=table.device)
     n_last = (torch.empty(n_tiles, P, dtype=torch.int32, device=table.device)
               if for_backward else None)
-    kernels.launch("blend_forward", table.data_ptr(), rank.data_ptr(),
+    if table.dtype == torch.bfloat16:
+        name, counted = "blend_forward_bf16", blend_forward_bf16
+    else:
+        name, counted = "blend_forward", blend_forward
+    kernels.launch(name, table.data_ptr(), rank.data_ptr(),
                    astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
                    s.tiles_x, s.alpha_clip, s.alpha_floor, s.transmittance_eps,
                    cpre.data_ptr(), tfinal.data_ptr(),
                    None if n_last is None else n_last.data_ptr())
-    blend_forward.launches += 1
+    counted.launches += 1
     if for_backward:
         return cpre, tfinal, n_last
     return cpre, tfinal
 
 
 blend_forward.launches = 0
+
+
+def blend_forward_bf16(*args, **kwargs):
+    """``blend_forward`` of a [M, 11] bf16 table (``encode_bf16_table``):
+    the table_bf16 form of kernel B, which decodes each row where it
+    stages it (csrc/entry_table.cuh); its launches are counted here."""
+    return blend_forward(*args, **kwargs)
+
+
+blend_forward_bf16.launches = 0
 
 
 def blend_backward(table: torch.Tensor, rank: torch.Tensor,
@@ -357,6 +414,7 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
     ``n_last``); a CUDA tensor launches the kernel.
     """
     if table.device.type == "cpu":
+        table = _as_f32(table)
         fwd = blend_forward_plain(table, rank, astart, count, settings,
                                   tile0, n_tiles_out)
         return blend_backward_plain(table, rank, astart, count, settings,
@@ -374,17 +432,32 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
         kernels.check(t, name, dtype, len(shape), table.device)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    g_table = torch.zeros_like(table)
-    kernels.launch("blend_backward", table.data_ptr(), rank.data_ptr(),
+    g_table = torch.zeros(table.shape[0], N_ATTR, device=table.device)
+    if table.dtype == torch.bfloat16:
+        name, counted = "blend_backward_bf16", blend_backward_bf16
+    else:
+        name, counted = "blend_backward", blend_backward
+    kernels.launch(name, table.data_ptr(), rank.data_ptr(),
                    astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
                    s.tiles_x, s.alpha_clip, s.alpha_floor, tfinal.data_ptr(),
                    n_last.data_ptr(), g_cpre.data_ptr(), g_tfinal.data_ptr(),
                    g_table.data_ptr())
-    blend_backward.launches += 1
+    counted.launches += 1
     return g_table
 
 
 blend_backward.launches = 0
+
+
+def blend_backward_bf16(*args, **kwargs):
+    """``blend_backward`` of a [M, 11] bf16 table: the table_bf16 form of
+    kernel C (decoded at its reads, csrc/entry_table.cuh), giving the
+    [M, 9] f32 gradient of the decoded values; its launches are counted
+    here."""
+    return blend_backward(*args, **kwargs)
+
+
+blend_backward_bf16.launches = 0
 
 
 class _BlendEntryStream(torch.autograd.Function):
@@ -392,6 +465,9 @@ class _BlendEntryStream(torch.autograd.Function):
     def forward(ctx, table, rank, astart, count, settings, tile0,
                 n_tiles_out):
         rng = dict(tile0=tile0, n_tiles_out=n_tiles_out)
+        if settings.table_bf16:
+            # once, at N scale; the gradient passes straight through
+            table = encode_bf16_table(table)
         if not ctx.needs_input_grad[0]:
             return blend_forward(table, rank, astart, count, settings, **rng)
         cpre, tfinal, n_last = blend_forward(table, rank, astart, count,
@@ -414,10 +490,12 @@ class _BlendEntryStream(torch.autograd.Function):
 def blend_entry_stream(table, rank, astart, count,
                        settings: RasterSettings, tile0: int = 0,
                        n_tiles_out: int | None = None):
-    """table [N+1, 9] (row N = zero sentinel), rank [E_al] int32, astart
-    and count [T] int32 -> (cpre [T, 3, P], tfinal [T, 1, P]); an empty
-    tile is (0, 1). T is ``n_tiles_out`` (default: the image's), the tiles
-    from ``tile0`` on. Differentiable in ``table``."""
+    """table [N+1, 9] f32 (row N = zero sentinel), rank [E_al] int32,
+    astart and count [T] int32 -> (cpre [T, 3, P], tfinal [T, 1, P]); an
+    empty tile is (0, 1). T is ``n_tiles_out`` (default: the image's), the
+    tiles from ``tile0`` on. With ``settings.table_bf16`` the table is
+    encoded to bf16 first (module docstring). Differentiable in
+    ``table``."""
     return _BlendEntryStream.apply(table, rank, astart, count, settings,
                                    tile0, n_tiles_out)
 

@@ -11,7 +11,10 @@ source or header is rebuilt and a stale library never loads.
 
 Every launch function takes the device pointers, the sizes and the CUDA
 stream, launches on that stream without synchronising, and returns
-``cudaGetLastError()``; ``launch`` raises when it is not 0.
+``cudaGetLastError()``; ``launch`` raises when it is not 0. A kernel is
+named by its launch function; a source may define more than one
+(``VARIANTS``: the bf16-table forms of B and C live in the sources of their
+f32 forms).
 """
 from __future__ import annotations
 
@@ -47,15 +50,20 @@ SIGNATURES = {
                        _P, _P),
     # keys, n_keys, start, n_tiles, k_cap, nbits, n, rank_out, stream
     "extract_windows": (_P, _L, _P, _I, _I, _I, _I, _P, _P),
-    # attrs, count, delta, bg, n_tiles, K, chunk, tiles_x, alpha_clip,
-    # alpha_floor, eps, colors_out, tfinal_out, tin_out, stream
-    "window_blend_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                             _P, _P, _P, _P),
+    # attrs, count, delta, bg, n_tiles, K, chunk, tile0, tiles_x,
+    # alpha_clip, alpha_floor, eps, colors_out, tfinal_out, tin_out, stream
+    "window_blend_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P, _P, _P, _P),
     # attrs, count, delta, bg, g_colors, tfinal, tin, n_tiles, K, chunk,
-    # tiles_x, alpha_clip, alpha_floor, eps, g_attrs_out, stream
+    # tile0, tiles_x, alpha_clip, alpha_floor, eps, g_attrs_out, stream
     "window_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _F, _F, _F, _P, _P),
+                              _I, _F, _F, _F, _P, _P),
 }
+# launch functions defined in another kernel's source: name -> source
+VARIANTS = {"blend_forward_bf16": "blend_forward",
+            "blend_backward_bf16": "blend_backward"}
+# the bf16 forms take the f32 forms' arguments (the table is [M, 11] bf16)
+SIGNATURES.update({k: SIGNATURES[v] for k, v in VARIANTS.items()})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # each kernel's ``<name>_launch``, resolved and typed once
@@ -71,7 +79,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source(name: str) -> str:
+    """The ``csrc/<source>.cu`` that defines kernel ``name``."""
+    return VARIANTS.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    name = source(name)
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
@@ -87,7 +101,7 @@ def build_all() -> dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs, out = {}, {}
-    for name in SIGNATURES:
+    for name in sorted({source(k) for k in SIGNATURES}):
         path = _lib_path(name)
         out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
         if path.exists():
@@ -107,6 +121,7 @@ def build_all() -> dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (its source's)."""
     if name not in _loaded:
         build_all()
         for kname, argtypes in SIGNATURES.items():

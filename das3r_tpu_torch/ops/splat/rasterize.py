@@ -17,16 +17,17 @@ reports it in ``tile_overflow``. The JAX package also takes the window
 path off the TPU, without ``max_total_entries``, and when the keys do not
 fit 32 bits; the port's entry stream needs none of these (its stream is
 sized from the counts when ``max_total_entries`` is None, and its keys are
-int64).
+int64). ``table_bf16`` stores the entry stream's attribute table in bf16
+(``entry_blend``); the window path ignores it, as in the JAX package.
 
 Multi-device (``parallel/``): with ``gauss_group`` the per-Gaussian inputs
 are this rank's slice of the Gaussians; preprocess runs on the slice and
 its outputs are gathered over the group before binning, whose sort is
-global. With ``tile_group`` (entry stream only, as in the JAX package's
-Pallas path; its tile-sharded window path is an XLA blend, not ported)
-each rank of the group blends one tile range (``render_range``) and the
-ranges' rows are gathered, so the image is whole on every rank
-(``_entry_stream_sharded``).
+global. With ``tile_group`` each rank of the group blends one tile range
+and the ranges' rows are gathered, so the image is whole on every rank:
+on the entry stream a range's own stream (``render_range``,
+``_entry_stream_sharded``), on the window path a range of the window rows
+(``window_range``; the JAX package's ``blend_tiles_sharded``).
 
 Binning runs on detached tensors; gradients flow through the
 depth-ordered attribute table: the blend backward gives each table row
@@ -127,9 +128,6 @@ def rasterize(
     per-Gaussian inputs are this rank's slice and ``radii`` covers every
     rank's Gaussians."""
     s = settings
-    if s.table_bf16:
-        raise NotImplementedError(
-            "the bf16 attribute table is not ported (ROADMAP.md)")
     dev = resolve_device(device)
 
     def on(x):
@@ -151,14 +149,10 @@ def rasterize(
     if collectives.size(gauss_group) > 1:
         with record_function("das3r::gather_gaussians"):
             p = gather_preprocessed(p, gauss_group)
-    if collectives.size(tile_group) > 1:
-        if not s.entry_stream:
-            raise NotImplementedError(
-                "tile sharding runs on the entry stream; the JAX package's "
-                "tile-sharded window path is an XLA blend, not ported")
-        return _entry_stream_sharded(p, s, on(bg), tile_group)
     if not s.entry_stream:
-        return _rasterize_windows(p, s, on(bg))
+        return _rasterize_windows(p, s, on(bg), tile_group)
+    if collectives.size(tile_group) > 1:
+        return _entry_stream_sharded(p, s, on(bg), tile_group)
     with record_function("das3r::bin_entry_stream"):
         es = binning.bin_entry_stream(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
@@ -185,22 +179,61 @@ def rasterize(
     return img, p.radius, aux
 
 
-def _rasterize_windows(p: prep_mod.Preprocessed, s: RasterSettings, bg):
+def window_range(attr_rank: torch.Tensor, bins: binning.TileBins, bg,
+                 settings: RasterSettings, n_ranges: int = 1,
+                 index: int = 0) -> torch.Tensor:
+    """Tile colours [t_loc, P, 3] of window rows [index * t_loc, (index +
+    1) * t_loc), t_loc = ``range_tiles``, blended by kernel D (E in the
+    backward) in its tile-range form; rows past the image are padding
+    (count 0: the background). ``attr_rank`` [N, 9] is the depth-rank
+    table; the gather by the range's ranks is its one [t_loc, K]-scale
+    gather, whose backward is the per-Gaussian sum of the slot
+    gradients."""
+    s = settings
+    t_loc = range_tiles(s, n_ranges)
+    tile0 = index * t_loc
+    stop = max(min(tile0 + t_loc, s.n_tiles), tile0)
+    pad = t_loc - (stop - tile0)
+
+    def rows(x):
+        if pad == 0:
+            return x[tile0:stop]
+        return torch.cat([x[tile0:stop],
+                          x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    attrs = attr_rank[rows(bins.rank)].transpose(1, 2).contiguous()
+    return window_blend.blend_tiles_window(
+        attrs, rows(bins.count), rows(bins.delta),
+        bg.to(torch.float32).reshape(3).contiguous(), s, tile0)
+
+
+def _rasterize_windows(p: prep_mod.Preprocessed, s: RasterSettings, bg,
+                       tile_group=None):
     """The [T, K] window branch (rasterize.py:204-246 of the JAX package,
-    its ``backend="pallas"`` form)."""
+    its ``backend="pallas"`` form). With a ``tile_group`` of R > 1 ranks,
+    the tile-sharded window render (JAX: ``blend.py::blend_tiles_sharded``,
+    reached at rasterize.py:198-228): every rank bins the whole image (the
+    same sort on every rank), blends range ``index`` of R
+    (``window_range``), and the ranges' rows are gathered, so every rank
+    holds the whole image. The gradients of the depth-rank table and of
+    ``bg`` are summed over the group, where each rank gives those of its
+    own range."""
+    n_ranges, index = collectives.size(tile_group), collectives.index(
+        tile_group)
     with record_function("das3r::bin_gaussians"):
         bins = binning.bin_gaussians(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
     with record_function("das3r::blend"):
         attr_mat = torch.cat([p.mean2d, p.conic, p.color,
                               p.opacity[:, None]], 1)
-        # depth-rank order at N scale, then the one [T, K]-scale gather by
-        # rank; its backward is the per-Gaussian sum of the slot gradients
+        # depth-rank order at N scale, then the range's gather by rank
         attr_rank = permute_rows(attr_mat, bins.order)
-        attrs = attr_rank[bins.rank].transpose(1, 2).contiguous()
-        tiles = window_blend.blend_tiles_window(
-            attrs, bins.count, bins.delta,
-            bg.to(torch.float32).reshape(3).contiguous(), s)
+        attr_rank, bg = collectives.sum_grads(tile_group, "window_grad",
+                                              attr_rank, bg)
+        colors = window_range(attr_rank, bins, bg, s, n_ranges, index)
+    with record_function("das3r::gather_tiles"):
+        tiles = collectives.gather_rows(colors, tile_group,
+                                        "tiles")[:s.n_tiles]
     with record_function("das3r::assemble"):
         img = blend.assemble_image(tiles, s)
         mtt, hrows, hist = _dup_telemetry(p, s)

@@ -24,12 +24,21 @@ as follows:
 * ``heavy_rows_cap`` and ``light_dup_width``: the split-width duplication
   table, as in the JAX package (binning.py), on both raster branches.
 * ``entries_per_shard``: the stream capacity of one tile range of the
-  tile-sharded render (``rasterize.render_range``); unset, a range takes
-  the global cap, or, with ``max_total_entries`` None, is sized from its
-  counts.
-* Not ported (ROADMAP.md): the quantized-depth
-  binning (``depth_sort_bits > 0`` raises), the backward reduction
-  options (``segsum_*``) and ``table_bf16`` (rasterize raises).
+  tile-sharded entry-stream render (``rasterize.render_range``); unset, a
+  range takes the global cap, or, with ``max_total_entries`` None, is
+  sized from its counts. The tile-sharded window path
+  (``rasterize.window_range``) blends ranges of the window rows.
+* ``table_bf16``: the entry stream's attribute table is encoded once per
+  render to JAX's [N+1, 11] bf16 layout and decoded in kernels B and C
+  (``entry_blend.encode_bf16_table``), unsharded and tile-range alike; the
+  window path ignores it, as in the JAX package.
+* ``depth_sort_bits > 0``: the window path's quantized-depth binning
+  (``binning._bin_quantized_depth``) where ``(n_tiles + 1) << bits`` fits
+  32 bits, else the exact binning, as in the JAX package; the entry stream
+  ignores it.
+* ``segsum_grad_reduce`` and ``segsum_min_rows`` choose how the JAX
+  package reduces per-entry gradients to table rows; kernel C adds them
+  into the rows itself, so the port reads neither.
 """
 from __future__ import annotations
 

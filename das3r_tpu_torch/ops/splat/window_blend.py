@@ -20,6 +20,12 @@ Two versions of each direction:
 * the CUDA kernels ``csrc/window_blend_forward.cu`` (kernel D) and
   ``csrc/window_blend_backward.cu`` (kernel E).
 
+A call may blend a range of window rows instead of the whole image (the
+tile-sharded window render, ``rasterize._windows_sharded``): ``tile0`` is
+the global index of the first row's tile, the row count is ``attrs``'s;
+only the pixel coordinates come from the global tile grid. The whole
+image is ``tile0 = 0``.
+
 Attribute rows (axis 1 of ``attrs``):
     0: mean2d_x  1: mean2d_y  2: conic_xx  3: conic_xy  4: conic_yy
     5: color_r   6: color_g   7: color_b   8: opacity
@@ -57,18 +63,19 @@ def _chunk_slots(attrs, deltas, counts, ti, c, chunk):
 
 def window_forward_plain(attrs: torch.Tensor, counts: torch.Tensor,
                          deltas: torch.Tensor, bg: torch.Tensor,
-                         settings: RasterSettings):
+                         settings: RasterSettings, tile0: int = 0):
     """(colors [T, P, 3], tfinal [T, P], tin [T, K/chunk, P]): the JAX
     forward kernel's algorithm batched over tiles. Two transmittances per
     pixel: ``T_run``, the running product committed even past eps (which
     decides the early exit), and ``T_out``, the T after the last
-    contributing entry."""
+    contributing entry. The JAX package's XLA window blend
+    (``blend.py::blend_tiles``) computes the same function."""
     s = settings
     dev = attrs.device
     n_tiles, _, K = attrs.shape
     chunk = _pick_chunk(K)
     P = s.tile * s.tile
-    px, py = _tile_pixels(s, n_tiles, dev)
+    px, py = _tile_pixels(s, n_tiles, dev, tile0)
     counts, deltas = counts.to(torch.int64), deltas.to(torch.int64)
     c0 = deltas // chunk
     n_run = torch.clamp_min(
@@ -97,8 +104,8 @@ def window_forward_plain(attrs: torch.Tensor, counts: torch.Tensor,
 def window_backward_plain(attrs: torch.Tensor, counts: torch.Tensor,
                           deltas: torch.Tensor, bg: torch.Tensor,
                           g_colors: torch.Tensor, tfinal: torch.Tensor,
-                          tin: torch.Tensor,
-                          settings: RasterSettings) -> torch.Tensor:
+                          tin: torch.Tensor, settings: RasterSettings,
+                          tile0: int = 0) -> torch.Tensor:
     """g_attrs [T, 9, K]: the JAX backward kernel's algorithm batched over
     tiles. A tile's visited chunks are its ``tin`` rows that reach eps; they
     are swept in reverse from S = (g . bg) T_final, each replayed from its
@@ -108,7 +115,7 @@ def window_backward_plain(attrs: torch.Tensor, counts: torch.Tensor,
     dev = attrs.device
     n_tiles, _, K = attrs.shape
     chunk = _pick_chunk(K)
-    px, py = _tile_pixels(s, n_tiles, dev)
+    px, py = _tile_pixels(s, n_tiles, dev, tile0)
     counts, deltas = counts.to(torch.int64), deltas.to(torch.int64)
     c0 = deltas // chunk
     n_vis = (tin.amax(2) >= s.transmittance_eps).sum(1)
@@ -125,7 +132,8 @@ def window_backward_plain(attrs: torch.Tensor, counts: torch.Tensor,
     return g_attrs
 
 
-def _check_window(attrs, counts, deltas, bg, settings: RasterSettings):
+def _check_window(attrs, counts, deltas, bg, settings: RasterSettings,
+                  tile0: int):
     """Raise unless the CUDA kernels can take these windows."""
     s = settings
     if s.tile != 16:
@@ -134,18 +142,21 @@ def _check_window(attrs, counts, deltas, bg, settings: RasterSettings):
     kernels.check(counts, "counts", torch.int32, 1, attrs.device)
     kernels.check(deltas, "deltas", torch.int32, 1, attrs.device)
     kernels.check(bg, "bg", torch.float32, 1, attrs.device)
-    if attrs.shape[0] != s.n_tiles or attrs.shape[1] != N_ATTR:
-        raise ValueError(f"attrs must be [{s.n_tiles}, {N_ATTR}, K], got "
+    n_tiles = attrs.shape[0]
+    if attrs.shape[1] != N_ATTR:
+        raise ValueError(f"attrs must be [T, {N_ATTR}, K], got "
                          f"{tuple(attrs.shape)}")
-    if counts.shape[0] != s.n_tiles or deltas.shape[0] != s.n_tiles:
-        raise ValueError(f"counts/deltas must hold {s.n_tiles} tiles")
+    if counts.shape[0] != n_tiles or deltas.shape[0] != n_tiles:
+        raise ValueError(f"counts/deltas must hold {n_tiles} tiles")
+    if not 0 <= tile0 < 2**31 - n_tiles:
+        raise ValueError(f"tile0={tile0} out of range")
     if bg.shape[0] != 3:
         raise ValueError(f"bg must be [3], got {tuple(bg.shape)}")
 
 
 def window_forward(attrs: torch.Tensor, counts: torch.Tensor,
                    deltas: torch.Tensor, bg: torch.Tensor,
-                   settings: RasterSettings):
+                   settings: RasterSettings, tile0: int = 0):
     """(colors [T, P, 3], tfinal [T, P], tin [T, K/chunk, P]); see
     ``window_forward_plain``.
 
@@ -159,8 +170,9 @@ def window_forward(attrs: torch.Tensor, counts: torch.Tensor,
     leaves a tile once every pixel is saturated. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel."""
     if attrs.device.type == "cpu":
-        return window_forward_plain(attrs, counts, deltas, bg, settings)
-    _check_window(attrs, counts, deltas, bg, settings)
+        return window_forward_plain(attrs, counts, deltas, bg, settings,
+                                    tile0)
+    _check_window(attrs, counts, deltas, bg, settings, tile0)
     s = settings
     n_tiles, _, K = attrs.shape
     chunk = _pick_chunk(K)
@@ -171,7 +183,7 @@ def window_forward(attrs: torch.Tensor, counts: torch.Tensor,
     tin = torch.empty(n_tiles, K // chunk, P, device=dev)
     kernels.launch("window_blend_forward", attrs.data_ptr(),
                    counts.data_ptr(), deltas.data_ptr(), bg.data_ptr(),
-                   n_tiles, K, chunk, s.tiles_x, s.alpha_clip,
+                   n_tiles, K, chunk, tile0, s.tiles_x, s.alpha_clip,
                    s.alpha_floor, s.transmittance_eps, colors.data_ptr(),
                    tfinal.data_ptr(), tin.data_ptr())
     window_forward.launches += 1
@@ -184,8 +196,8 @@ window_forward.launches = 0
 def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
                     deltas: torch.Tensor, bg: torch.Tensor,
                     g_colors: torch.Tensor, tfinal: torch.Tensor,
-                    tin: torch.Tensor,
-                    settings: RasterSettings) -> torch.Tensor:
+                    tin: torch.Tensor, settings: RasterSettings,
+                    tile0: int = 0) -> torch.Tensor:
     """g_attrs [T, 9, K] from the colour cotangents and the forward's
     ``tfinal`` and ``tin``; see ``window_backward_plain``.
 
@@ -200,8 +212,8 @@ def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
     takes the plain version; a CUDA tensor launches the kernel."""
     if attrs.device.type == "cpu":
         return window_backward_plain(attrs, counts, deltas, bg, g_colors,
-                                     tfinal, tin, settings)
-    _check_window(attrs, counts, deltas, bg, settings)
+                                     tfinal, tin, settings, tile0)
+    _check_window(attrs, counts, deltas, bg, settings, tile0)
     s = settings
     n_tiles, _, K = attrs.shape
     chunk = _pick_chunk(K)
@@ -216,7 +228,7 @@ def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
     kernels.launch("window_blend_backward", attrs.data_ptr(),
                    counts.data_ptr(), deltas.data_ptr(), bg.data_ptr(),
                    g_colors.data_ptr(), tfinal.data_ptr(), tin.data_ptr(),
-                   n_tiles, K, chunk, s.tiles_x, s.alpha_clip,
+                   n_tiles, K, chunk, tile0, s.tiles_x, s.alpha_clip,
                    s.alpha_floor, s.transmittance_eps, g_attrs.data_ptr())
     window_backward.launches += 1
     return g_attrs
@@ -227,11 +239,11 @@ window_backward.launches = 0
 
 class _BlendTilesWindow(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, attrs, counts, deltas, bg, settings):
+    def forward(ctx, attrs, counts, deltas, bg, settings, tile0):
         colors, tfinal, tin = window_forward(attrs, counts, deltas, bg,
-                                             settings)
+                                             settings, tile0)
         ctx.save_for_backward(attrs, counts, deltas, bg, tfinal, tin)
-        ctx.settings = settings
+        ctx.settings, ctx.tile0 = settings, tile0
         return colors
 
     @staticmethod
@@ -243,17 +255,18 @@ class _BlendTilesWindow(torch.autograd.Function):
             if ctx.needs_input_grad[0]:
                 g_attrs = window_backward(attrs, counts, deltas, bg,
                                           g_colors, tfinal, tin,
-                                          ctx.settings)
+                                          ctx.settings, ctx.tile0)
             if ctx.needs_input_grad[3]:
                 # dL/dbg = sum over pixels of g * T_final
                 g_bg = (g_colors * tfinal[:, :, None]).sum((0, 1))
-        return g_attrs, None, None, g_bg, None
+        return g_attrs, None, None, g_bg, None, None
 
 
-def blend_tiles_window(attrs, counts, deltas, bg,
-                       settings: RasterSettings) -> torch.Tensor:
+def blend_tiles_window(attrs, counts, deltas, bg, settings: RasterSettings,
+                       tile0: int = 0) -> torch.Tensor:
     """attrs [T, 9, K], counts/deltas [T] int32, bg [3] -> tile colours
     [T, P, 3] (``blend_tiles_pallas`` of the JAX package). Live slots are
-    [delta, delta + count) per tile. Differentiable in ``attrs`` and
-    ``bg``."""
-    return _BlendTilesWindow.apply(attrs, counts, deltas, bg, settings)
+    [delta, delta + count) per tile; the rows are the tiles from ``tile0``
+    on (module docstring). Differentiable in ``attrs`` and ``bg``."""
+    return _BlendTilesWindow.apply(attrs, counts, deltas, bg, settings,
+                                   tile0)

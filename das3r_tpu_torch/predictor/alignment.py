@@ -617,7 +617,8 @@ def align(edges: list, pred_i, pred_j, conf_i, conf_j, mask_i,
         pred_i=t(pred_i), pred_j=t(pred_j), conf_i=t(conf_i),
         conf_j=t(conf_j), mask_i=t(mask_i))
     if flows is not None:
-        flows = tuple(t(np.asarray(f), None) for f in flows)
+        flows = tuple(t(f if isinstance(f, torch.Tensor) else np.asarray(f),
+                        None) for f in flows)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -20,7 +20,8 @@ from das3r_tpu_torch.data import trajectory
 from das3r_tpu_torch.models.croco.convert import (load_reference_state_dict,
                                                   read_checkpoint)
 from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
-from das3r_tpu_torch.predictor import alignment, inference, pairs
+from das3r_tpu_torch.predictor import alignment, inference, mask_refine, pairs
+from das3r_tpu_torch.predictor import flow as flow_mod
 from das3r_tpu_torch.utils.device import resolve_device
 
 VIDEO_EXTS = {".mp4", ".avi", ".mov"}
@@ -176,23 +177,21 @@ def run_scene(
     stats: dict | None = None,
 ) -> Stage1Result:
     """Stage 1 on ``device`` (default CUDA; a RuntimeError without it; the
-    model is moved there).
+    models are moved there).
 
     ``flows``: precomputed (flow_ij, flow_ji, valid_i, valid_j) for the
-    alignment's flow term, as ``alignment.align`` takes them. RAFT flows
-    (``raft_params``) and mask refinement (``mask_refiner``) are not
-    ported yet and raise. ``stats``, when a dict, receives the seconds of
-    each part (``load_s``, ``inference_s``, ``save_s``, ``total_s``) and
-    the alignment's under ``align`` (see ``alignment.align``).
+    alignment's flow term, as ``alignment.align`` takes them. Without
+    them, ``raft_params`` (the flow network: a frozen ``raft.RAFT`` or
+    ``searaft.SeaRaft`` with its weights, e.g. ``flow.load_flow_model``)
+    computes them over the edges when the flow term has a weight, as the
+    JAX runner does (runner.py:175-184). ``mask_refiner``: a video mask
+    propagator (``mask_refine.NeighborPropagator``) whose parity-split
+    cross-propagation grows the dynamic masks before they are saved.
+    ``stats``, when a dict, receives the seconds of each part
+    (``load_s``, ``inference_s``, ``flow_s``, ``align_s``, ``refine_s``,
+    ``save_s``, ``total_s``) and the alignment's under ``align`` (see
+    ``alignment.align``).
     """
-    if raft_params is not None:
-        raise NotImplementedError(
-            "RAFT flows are not ported yet (ROADMAP.md queue 1, item 7); "
-            "pass precomputed flows")
-    if mask_refiner is not None:
-        raise NotImplementedError(
-            "mask refinement is not ported yet (ROADMAP.md queue 1, "
-            "item 8)")
     dev = resolve_device(device)
     model.to(dev)
     t0 = time.perf_counter()
@@ -211,6 +210,15 @@ def run_scene(
     t2 = time.perf_counter()
     verbose("stage1: pairwise inference done; aligning...")
 
+    if (flows is None and raft_params is not None
+            and aligner_cfg.flow_loss_weight > 0):
+        verbose("stage1: computing flows for the alignment's flow term")
+        flows = flow_mod.compute_edge_flows(raft_params, images01, edges,
+                                            device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t_flow = time.perf_counter()
+
     align_stats: dict = {}
     if n > 2:
         scene = alignment.align(
@@ -226,12 +234,22 @@ def run_scene(
     t3 = time.perf_counter()
     verbose(f"stage1: alignment loss {scene.final_loss:.5f}")
 
+    if mask_refiner is not None:
+        refined = mask_refine.refine_motion_masks(
+            scene.dynamic_masks, images01, mask_refiner)
+        verbose(f"stage1: mask refinement grew "
+                f"{int(refined.sum() - scene.dynamic_masks.sum())} px")
+        scene = scene._replace(dynamic_masks=refined)
+    t_refine = time.perf_counter()
+
     save_stage1_outputs(out_dir, images01, scene)
     t4 = time.perf_counter()
     if stats is not None:
-        stats.update(load_s=t1 - t0, inference_s=t2 - t1, align_s=t3 - t2,
-                     save_s=t4 - t3, total_s=t4 - t0, n_frames=n,
-                     n_edges=len(edges), graph=graph, align=align_stats)
+        stats.update(load_s=t1 - t0, inference_s=t2 - t1,
+                     flow_s=t_flow - t2, align_s=t3 - t_flow,
+                     refine_s=t_refine - t3, save_s=t4 - t_refine,
+                     total_s=t4 - t0, n_frames=n, n_edges=len(edges),
+                     graph=graph, align=align_stats)
     return Stage1Result(scene=scene, n_frames=n, out_dir=out_dir)
 
 
@@ -261,8 +279,13 @@ def main(argv=None):
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--motion_mask_thre", type=float, default=0.35)
     ap.add_argument("--refine_masks", action="store_true",
-                    help="video-propagation mask refinement (not ported "
-                         "yet: raises)")
+                    help="video-propagation mask refinement (the SAM2 "
+                         "slot, optimizer.py:226-301; the propagator is the "
+                         "dependency-free NeighborPropagator)")
+    ap.add_argument("--flow_ckpt", default=None,
+                    help="RAFT or SEA-RAFT .pth ('M' in the file name: "
+                         "SEA-RAFT) whose flows feed the alignment's flow "
+                         "term (default: no flow term)")
     ap.add_argument("--bf16", action="store_true",
                     help="run the ViT trunk in bfloat16 (heads float32)")
     ap.add_argument("--device", default=None,
@@ -273,10 +296,14 @@ def main(argv=None):
     model = build_model(args.ckpt, args.bf16)
     cfg = alignment.AlignerConfig(niter=args.n_iter, lr=args.lr,
                                   motion_mask_thre=args.motion_mask_thre)
+    flow_net = (flow_mod.load_flow_model(args.flow_ckpt) if args.flow_ckpt
+                else None)
     run_scene(args.image_dir, args.output_dir, model,
               scene_graph=args.scene_graph, aligner_cfg=cfg,
               stride=args.stride, max_frames=args.max_frames,
-              mask_refiner=True if args.refine_masks else None, device=dev)
+              raft_params=flow_net,
+              mask_refiner=(mask_refine.NeighborPropagator()
+                            if args.refine_masks else None), device=dev)
 
 
 if __name__ == "__main__":

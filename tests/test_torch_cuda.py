@@ -648,8 +648,14 @@ def test_window_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError, match="multiple of 128"):
         window_blend.window_forward(good[0][:, :, :96].contiguous(),
                                     *good[1:], s)
-    with pytest.raises(ValueError, match=r"attrs must be \[30, 9, K\]"):
+    # the rows are attrs's (a range of window rows): counts must match
+    with pytest.raises(ValueError, match="counts/deltas must hold 4 tiles"):
         window_blend.window_forward(good[0][:4].contiguous(), *good[1:], s)
+    with pytest.raises(ValueError, match=r"attrs must be \[T, 9, K\]"):
+        window_blend.window_forward(good[0][:, :8].contiguous(), *good[1:],
+                                    s)
+    with pytest.raises(ValueError, match="tile0"):
+        window_blend.window_forward(*good, s, -1)
     with pytest.raises(ValueError, match="tiles"):
         window_blend.window_forward(good[0], good[1][:4].contiguous(),
                                     *good[2:], s)
@@ -849,3 +855,104 @@ def test_align_on_card_matches_cpu(cuda, no_tf32):
         want = getattr(res["cpu"], k)
         err = np.abs(getattr(res[str(torch.device(cuda))], k) - want).max()
         assert err <= 1e-5 * np.abs(want).max(), (k, err)
+
+
+# --- the table_bf16 form of kernels B and C ---------------------------
+
+
+@pytest.mark.parametrize("variant", BLEND_CASES)
+def test_bf16_encode_on_the_card_is_the_cpus(cuda, variant):
+    """The encode of ``blend_case``'s table on the card, bitwise the
+    CPU's (round to nearest even in both)."""
+    _, args = blend_case(variant)
+    want = entry_blend.encode_bf16_table(args[0])
+    got = entry_blend.encode_bf16_table(args[0].to(cuda))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", FORWARD_CASES)
+def test_bf16_blend_forward_kernel_matches_plain(cuda, variant):
+    """B-bf16 (with and without n_last) against the plain forward on the
+    decoded table; the launch counted under ``blend_forward_bf16``."""
+    s, args = blend_case(variant)
+    t16 = entry_blend.encode_bf16_table(args[0])
+    plain = entry_blend.blend_forward_plain(
+        entry_blend.decode_bf16_table(t16), *args[1:], s)
+    dev = [t16.to(cuda)] + [a.to(cuda) for a in args[1:]]
+    before = (entry_blend.blend_forward.launches,
+              entry_blend.blend_forward_bf16.launches)
+    cpre, tfinal = entry_blend.blend_forward(*dev, s)
+    cpre_n, tfinal_n, n_last = entry_blend.blend_forward(*dev, s, True)
+    torch.cuda.synchronize()
+    assert (entry_blend.blend_forward.launches,
+            entry_blend.blend_forward_bf16.launches) == (
+        before[0], before[1] + 2)
+    for c, t in ((cpre, tfinal), (cpre_n, tfinal_n)):
+        torch.testing.assert_close(c.cpu(), plain.cpre, atol=BLEND_TOL,
+                                   rtol=0)
+        torch.testing.assert_close(t.cpu(), plain.tfinal, atol=BLEND_TOL,
+                                   rtol=0)
+    assert torch.equal(cpre, cpre_n) and torch.equal(tfinal, tfinal_n)
+
+
+@pytest.mark.parametrize("variant", BLEND_CASES)
+def test_bf16_blend_backward_kernel_matches_plain(cuda, variant):
+    """C-bf16 against the plain backward on the decoded table: the [M, 9]
+    f32 gradient within 2e-5 x max|g| per column group."""
+    s, args = blend_case(variant)
+    t16 = entry_blend.encode_bf16_table(args[0])
+    dec = entry_blend.decode_bf16_table(t16)
+    rng = np.random.default_rng(41 + BLEND_CASES.index(variant))
+    P = s.tile * s.tile
+    g_cpre = torch.as_tensor(rng.normal(size=(s.n_tiles, 3, P)).astype(
+        np.float32))
+    g_tfinal = torch.as_tensor(rng.normal(size=(s.n_tiles, 1, P)).astype(
+        np.float32))
+    fwd = entry_blend.blend_forward_plain(dec, *args[1:], s)
+    want = entry_blend.blend_backward_plain(
+        dec, *args[1:], s, fwd.tfinal, fwd.tin, g_cpre, g_tfinal).g_table
+    dev = [t16.to(cuda)] + [a.to(cuda) for a in args[1:]]
+    _, tfinal, n_last = entry_blend.blend_forward(*dev, s, True)
+    before = entry_blend.blend_backward_bf16.launches
+    got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
+                                     g_cpre.to(cuda), g_tfinal.to(cuda))
+    torch.cuda.synchronize()
+    assert entry_blend.blend_backward_bf16.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    got = got.cpu()
+    assert torch.isfinite(got).all() and (got[-1] == 0).all()
+    for name, cols in GROUPS.items():
+        ref = float(want[:, cols].abs().max())
+        assert ref > 0, name
+        torch.testing.assert_close(got[:, cols], want[:, cols],
+                                   atol=GRAD_TOL * ref, rtol=0, msg=name)
+
+
+# --- kernels D and E in their tile-range form --------------------------
+
+
+@pytest.mark.parametrize("k_width,mode", [(8, "sparse"), (256, "sparse"),
+                                          (384, "saturate")])
+def test_window_kernels_at_tile0_match_the_whole_rows(cuda, k_width, mode):
+    """D and E on window rows [8, 16) and [24, 30) launched with their
+    ``tile0``: D's outputs bitwise the whole-image launch's rows, E's
+    gradients of those rows too (E writes each slot once, in a fixed
+    order); ``tile0 = 0`` over every row is the whole launch."""
+    s, bargs = window_backward_inputs(k_width, mode)
+    dev = [a.to(cuda) for a in bargs[:5]]
+    whole = window_blend.window_forward(*dev[:4], s)
+    g_whole = window_blend.window_backward(*dev, whole[1], whole[2], s)
+    zero = window_blend.window_forward(*dev[:4], s, 0)
+    for tile0, stop in ((8, 16), (24, s.n_tiles)):
+        part = [a[tile0:stop].contiguous() for a in dev[:3]]
+        fwd = window_blend.window_forward(*part, dev[3], s, tile0)
+        g = window_blend.window_backward(
+            *part, dev[3], dev[4][tile0:stop].contiguous(), fwd[1], fwd[2],
+            s, tile0)
+        torch.cuda.synchronize()
+        for x, w in zip(fwd, whole):
+            assert torch.equal(x, w[tile0:stop])
+        assert torch.equal(g, g_whole[tile0:stop])
+    for x, w in zip(zero, whole):
+        assert torch.equal(x, w)

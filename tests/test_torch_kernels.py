@@ -15,7 +15,7 @@ from das3r_tpu_torch.ops.splat import kernels
 SOURCES = sorted(p.name for p in kernels.CSRC.iterdir()
                  if p.suffix in (".cu", ".cuh"))
 HEADERS = [s for s in SOURCES if s.endswith(".cuh")]
-KERNELS = sorted(kernels.SIGNATURES)
+KERNELS = sorted(kernels.SIGNATURES)   # launch functions
 
 
 @pytest.fixture
@@ -30,7 +30,8 @@ def csrc_copy(tmp_path, monkeypatch):
 
 def test_sources_name_the_signed_kernels():
     cu = sorted(s[:-3] for s in SOURCES if s.endswith(".cu"))
-    assert cu == KERNELS
+    assert cu == sorted({kernels.source(k) for k in KERNELS})
+    assert set(kernels.VARIANTS) < set(KERNELS)
     assert HEADERS, "the backward kernels share a header"
 
 
@@ -38,7 +39,7 @@ def test_sources_name_the_signed_kernels():
 def test_launch_function_takes_the_signed_arguments(name):
     """Each source defines ``extern "C" int <name>_launch(...)`` with as
     many parameters as its ctypes signature (the stream last)."""
-    text = (kernels.CSRC / f"{name}.cu").read_text()
+    text = (kernels.CSRC / f"{kernels.source(name)}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"_launch\(([^)]*)\)", text)
     assert m, f"{name}.cu defines no {name}_launch"
     params = [p.strip() for p in m.group(1).split(",")]
@@ -67,10 +68,11 @@ def test_editing_a_header_renames_every_library(csrc_copy, header):
 @pytest.mark.parametrize("name", KERNELS)
 def test_editing_a_source_renames_only_its_library(csrc_copy, name):
     before = {k: kernels._lib_path(k) for k in KERNELS}
-    with open(csrc_copy / f"{name}.cu", "a") as f:
+    with open(csrc_copy / f"{kernels.source(name)}.cu", "a") as f:
         f.write("\n// edited\n")
     for k in KERNELS:
-        assert (kernels._lib_path(k) != before[k]) == (k == name), k
+        assert ((kernels._lib_path(k) != before[k])
+                == (kernels.source(k) == kernels.source(name))), k
 
 
 # the four blend kernels: D and E on the window path, B and C on the entry

@@ -173,6 +173,18 @@ def test_step_gauss_tile_matches_unsharded(four_ranks, reference):
         assert_step_close(got, reference, slice(64 * j, 64 * (j + 1)))
 
 
+def test_window_path_tile_step_matches_unsharded(scene):
+    """(tile=2) on the [T, K] window path (``entry_stream=False``): each
+    rank blends its range of window rows, the rows are gathered and the
+    depth-rank table's gradient summed; against the unsharded window
+    step at the same bars."""
+    want = workers.run_step(scene[-1], make_mesh(world_size=1),
+                            entry_stream=False)
+    assert np.abs(want["g_params"]["xyz"]).max() > 0
+    for r in spawn("window_tile", 2, scene[-1]):
+        assert_step_close(r, want)
+
+
 def test_comm_stats_count_the_table_reduction(scene):
     """(data=1, tile=2): the table-gradient all-reduce moves (N + 1) x 9 x
     4 bytes, once a step; every family is in hlo_stats' form."""

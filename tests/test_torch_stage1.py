@@ -297,15 +297,11 @@ def test_run_scene_matches_jax(weights, frames_dir, tmp_path):
     assert stats["n_edges"] == 18 and stats["align"]["first_loss"] > 0
 
 
-def test_runner_raises_on_what_is_not_ported(weights, frames_dir, tmp_path,
-                                             monkeypatch):
+def test_entry_points_raise_without_cuda(weights, frames_dir, tmp_path,
+                                        monkeypatch):
+    """Without a device, the runner, its CLI and the pipeline's CLI run on
+    CUDA and raise where there is none."""
     _, _, model = weights
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trunner.run_scene(frames_dir, str(tmp_path), model, raft_params={},
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trunner.run_scene(frames_dir, str(tmp_path), model,
-                          mask_refiner=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         trunner.run_scene(frames_dir, str(tmp_path), model)

@@ -44,10 +44,13 @@ def numpy_group(g) -> dict:
             for f in dataclasses.fields(g)}
 
 
-def run_step(work: Path, mesh, gauss_axis=None, uids=(0, 1)) -> dict:
+def run_step(work: Path, mesh, gauss_axis=None, uids=(0, 1),
+             **settings_kw) -> dict:
     """One sharded step on the scene from a fresh state: this rank's
-    gradients, loss and post-step state, as numpy."""
+    gradients, loss and post-step state, as numpy. ``settings_kw``
+    replace fields of the scene's raster settings."""
     params, meta, poses, gts, fovs, bg, settings, cfg = load_scene(work)
+    settings = dataclasses.replace(settings, **settings_kw)
     state = step_mod.init_train_state(params, poses)
     if gauss_axis:
         state = sharded.shard_state(state, mesh)
@@ -99,8 +102,14 @@ def task_jax_mesh(work: Path) -> dict:
                     gauss_axis="gauss")
 
 
+def task_window_tile(work: Path) -> dict:
+    """The step at (tile=2) on the [T, K] window path
+    (``entry_stream=False``): two ranks."""
+    return run_step(work, make_mesh(tile=2), entry_stream=False)
+
+
 TASKS = {"render_and_steps": task_render_and_steps, "comm": task_comm,
-         "jax_mesh": task_jax_mesh}
+         "jax_mesh": task_jax_mesh, "window_tile": task_window_tile}
 
 
 def run(rank: int, world: int, work: str, task: str) -> None:
