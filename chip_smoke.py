@@ -175,12 +175,33 @@ failure:
    iterations and ``render_sets``. Checks a finite stage-2 loss, the
    renders and the video, and the launches of each stage: D and F in the
    probe, A, B, C in training, A and B in the renders.
+19. stage1_train: ``das3r_tpu_torch.predictor.train_loop.fit`` on ``cuda``
+   (no raster kernel may launch). (a) The DAS3R recipe: the same
+   DUST3R_LARGE_CONFIG weights, ``freeze='encoder_and_3d_predictor'``,
+   ``Stage1TrainConfig``'s defaults (lr 5e-5, b2 0.95, weight decay
+   0.05), ``WallTwoViewDataset`` at 512x288 (PointOdyssey's training
+   resolution), batch 8, 2 epochs of 4 steps, a test pass over one batch
+   each epoch and checkpoint-last/-best/-final written; checks every
+   loss finite, every frozen tensor bitwise unchanged and every mask-head
+   tensor moved, checkpoint-last reloaded bitwise, and the mask BCE on
+   one fixed batch falling over 5 steps; prints the step ms (host clock
+   after a synchronize), a profiled step, the peak memory, the
+   checkpoints' seconds and bytes and the data's render seconds. (b)
+   TINY from scratch at ``scripts/train_tiny_stage1.py``'s recorded
+   setting (256 samples at 64x48, 60 epochs, lr 1e-3, freeze none;
+   checkpoint-last written once, not every epoch): the held-out mask
+   IoU >= 0.7 (JAX's record 0.8733), and 3 TINY steps on the
+   card against the CPU (losses, and at Adam eps 1e-2 the mask heads,
+   within 1e-4 x max|CPU|). (c) ``eval_pose_estimation`` on a synthetic
+   ``tum`` layout (8 frames at 288x512) with (b)'s model: every sequence
+   evaluated, a finite ATE.
 
 Then the ``kernels`` line (A, B, C, B-bf16 and C-bf16 at the trainer
 scene with their random-scene numbers under ``random_scene``; B, C, D and
 E with their tile-range numbers under ``tile_range``; D, E, F at the
 trainer scene; launches by path, the viewer's, stage 1's, the pipeline's,
-the bf16 steps' and the sharded steps' of both paths included), the ``nvidia-smi`` line, and last the device line. Everything it
+the bf16 steps', the sharded steps' of both paths and stage-1
+training's included), the ``nvidia-smi`` line, and last the device line. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -191,6 +212,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import shutil
 import statistics
@@ -255,6 +277,30 @@ FLOW_CHUNK = 12              # edges per flow forward call (flow.py)
 FLOW_CPU_BAR = 1e-4          # x max|CPU|: tests/test_torch_flow.py's bar
 SEARAFT_CHECK_ITERS = 1      # the iterations that bar holds SEA-RAFT at
 SHARDED_TIMEOUT = 360        # s, both ranks, start-up included
+# stage-1 training at full width: the DAS3R recipe (Stage1TrainConfig's
+# defaults) on PointOdyssey's training resolution (JAX datasets.py:112),
+# batch 8 a GPU (DAS3R_b32_g4.sh; JAX training.py:12)
+S1T_RES = (512, 288)         # (W, H)
+S1T_BATCH = 8
+S1T_EPOCHS, S1T_STEPS = 2, 4  # steps an epoch
+S1T_BCE_STEPS = 5
+# TINY from scratch: scripts/train_tiny_stage1.py with the arguments of
+# docs/tiny_stage1_iou_r5.json (JAX's record: held-out IoU 0.8733)
+TINY_RUN = dict(n_train=256, n_test=32, res=(64, 48), epochs=60, lr=1e-3,
+                batch=8, train_seed=1, test_seed=999)
+TINY_IOU_BAR = 0.7           # the bar JAX's record cleared (vs_baseline)
+JAX_TINY_IOU = 0.8733
+# card against CPU, 3 TINY steps: losses and mask-head parameters within
+# STAGE1_CPU_BAR x max|ref|. Adam's first update is lr x sign(g), which
+# float rounding flips where a gradient is ~0; the parameters are held
+# where the update is a smooth function of the gradient (eps 1e-2), as
+# tests/test_torch_stage1_training.py holds them against JAX
+S1T_CPU_STEPS = 3
+S1T_CPU_BATCH = 2            # pairs: the CPU's steps of the 72M-parameter
+                             # TINY (DPT heads) take seconds each
+S1T_SMOOTH_EPS = 1e-2
+POSE_FRAMES = 8
+POSE_ITERS = 50
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -3041,6 +3087,348 @@ def phase_pipeline(sd, dev):
     return launches
 
 
+class _Rendered:
+    """A dataset's samples made once: rendering counts as set-up."""
+
+    def __init__(self, dataset):
+        self.items = [dataset[i] for i in range(len(dataset))]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def _timed_steps(orig, times: list, losses: list):
+    """``orig`` (``training.make_train_step``) whose every step is timed
+    on the host clock after a synchronize, its losses kept."""
+    import torch
+
+    def make(*args, **kw):
+        step = orig(*args, **kw)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append([float(x) for x in out])
+            return out
+        return timed
+    return make
+
+
+def tiny_mask_iou(model, dataset, dev, thr: float = 0.5) -> float:
+    """``scripts/train_tiny_stage1.py::mask_iou_eval``: the mean IoU of
+    every held-out view's dynamic mask > ``thr`` against its GT."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.eval.masks import mask_iou
+    from das3r_tpu_torch.predictor.datasets import batch_iterator
+    ious = []
+    with torch.no_grad():
+        for img1, img2, batch in batch_iterator(
+                dataset, TINY_RUN["batch"], seed=0, shuffle=False,
+                drop_last=False):
+            r1, r2 = model(torch.as_tensor(img1, device=dev),
+                           torch.as_tensor(img2, device=dev))
+            for res, gt in ((r1, batch.gt_mask_1), (r2, batch.gt_mask_2)):
+                pred = (res["dynamic_mask"] > thr).cpu().numpy()
+                ious += [mask_iou(p, g > 0.5) for p, g in zip(pred, gt)]
+    return float(np.mean(ious))
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_weights() -> dict:
+    """TINY's weights from the testkit's generator on seed 0 (numpy)."""
+    import numpy as np
+    from das3r_tpu_torch.models.croco.testkit import (TINY,
+                                                      random_torch_state_dict)
+    return random_torch_state_dict(TINY, np.random.default_rng(0))
+
+
+def tiny_model(dev):
+    from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
+    from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
+    from das3r_tpu_torch.models.croco.testkit import TINY
+    model = AsymmetricCroCo3D(TINY)
+    load_reference_state_dict(model, tiny_weights())
+    return model.to(dev)
+
+
+def stage1_card_vs_cpu(batch, dev) -> dict:
+    """``S1T_CPU_STEPS`` steps of the TINY model (freeze none, lr 1e-3) on
+    one batch, on the card and on the CPU, at the recipe's eps and at
+    ``S1T_SMOOTH_EPS``: every loss within STAGE1_CPU_BAR x |CPU|; at the
+    smooth eps every mask-head tensor within STAGE1_CPU_BAR x max|CPU|,
+    at the recipe's the share of elements beyond that bar reported."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.predictor import training
+    img1, img2, b = batch
+    out = {}
+    for name, eps in (("recipe_eps", training.Stage1TrainConfig().eps),
+                      ("smooth_eps", S1T_SMOOTH_EPS)):
+        runs = {}
+        for on in (dev, "cpu"):
+            model = tiny_model(on)
+            train, _ = training.split_params(model, "none")
+            cfg = training.Stage1TrainConfig(
+                lr=TINY_RUN["lr"], warmup_epochs=0.0, steps_per_epoch=10,
+                epochs=10, freeze="none", eps=eps)
+            step = training.make_train_step(model, cfg)
+            opt = training.adamw_init(train)
+            losses = [[float(x) for x in step(
+                train, opt, torch.as_tensor(img1, device=on),
+                torch.as_tensor(img2, device=on), b.to(on), i)]
+                for i in range(S1T_CPU_STEPS)]
+            runs[on] = (np.asarray(losses), {
+                k: v.detach().cpu().numpy() for k, v in train.items()
+                if k.startswith(training.TRAINABLE_KEYS)})
+        (lg, pg), (lc, pc) = runs[dev], runs["cpu"]
+        loss_rel = float((np.abs(lg - lc) / np.abs(lc)).max())
+        rels = {k: float(np.abs(pg[k] - pc[k]).max() / np.abs(pc[k]).max())
+                for k in pc}
+        over = sum(int((np.abs(pg[k] - pc[k])
+                        > STAGE1_CPU_BAR * np.abs(pc[k]).max()).sum())
+                   for k in pc)
+        out[name] = dict(eps=eps, loss_rel=loss_rel,
+                         param_rel_worst=max(rels.values()),
+                         params_beyond_bar=over,
+                         params=sum(v.size for v in pc.values()))
+        if not loss_rel <= STAGE1_CPU_BAR:
+            raise AssertionError(f"stage-1 steps, {name}: losses card "
+                                 f"against CPU {loss_rel} > bar: {out}")
+        if name == "smooth_eps" and not max(rels.values()) <= STAGE1_CPU_BAR:
+            raise AssertionError(f"stage-1 steps: mask heads card against "
+                                 f"CPU {max(rels.values())} > bar: {out}")
+    return out
+
+
+def phase_stage1_train(sd, dev):
+    """Stage-1 training (``predictor/train_loop.fit``) on the card: (a) the
+    DAS3R recipe at DUST3R_LARGE_CONFIG, (b) TINY from scratch at JAX's
+    recorded setting, held-out mask IoU, and TINY steps on the card
+    against the CPU, (c) ``eval_pose_estimation`` on a synthetic tum
+    layout with (b)'s model. No raster kernel may launch."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.data import synthetic
+    from das3r_tpu_torch.eval import pose_eval
+    from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
+    from das3r_tpu_torch.models.croco.dust3r import (DUST3R_LARGE_CONFIG,
+                                                     AsymmetricCroCo3D)
+    from das3r_tpu_torch.predictor import alignment, train_loop, training
+    from das3r_tpu_torch.predictor.datasets import (WallTwoViewDataset,
+                                                    batch_iterator)
+
+    def say(*what):
+        """progress on stderr: a cut run still shows how far it got"""
+        print("stage1_train:", *what, file=sys.stderr, flush=True)
+
+    def main_path():
+        # (a) the DAS3R recipe at full width
+        model = AsymmetricCroCo3D(DUST3R_LARGE_CONFIG)
+        load_reference_state_dict(model, sd)
+        model.to(dev)
+        t0 = time.perf_counter()
+        n = S1T_BATCH * S1T_STEPS
+        train_ds = _Rendered(WallTwoViewDataset(n=n, resolution=S1T_RES,
+                                                seed=1))
+        test_ds = _Rendered(WallTwoViewDataset(n=S1T_BATCH,
+                                               resolution=S1T_RES, seed=999))
+        render_s = time.perf_counter() - t0
+        say("(a) data rendered", render_s)
+        tcfg = training.Stage1TrainConfig(epochs=S1T_EPOCHS,
+                                          steps_per_epoch=S1T_STEPS)
+        lcfg = train_loop.Stage1LoopConfig(
+            epochs=S1T_EPOCHS, batch_size=S1T_BATCH,
+            out_dir=str(WORK / "stage1_train"))
+        # untied upsampling biases (fit unties them first) in the snapshot
+        trainable = set(training.split_params(model, tcfg.freeze)[0])
+        before = {k: v.detach().clone()
+                  for k, v in model.named_parameters()}
+        step_s, step_losses, progress = [], [], []
+        orig_make = training.make_train_step
+        training.make_train_step = _timed_steps(orig_make, step_s,
+                                                step_losses)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with _Timed(train_loop, "_save_ckpt") as ckpt:
+                t1 = time.perf_counter()
+                _, hist = train_loop.fit(model, train_ds, {"wall": test_ds},
+                                         tcfg, lcfg, progress=progress.append,
+                                         device=dev)
+                fit_s = time.perf_counter() - t1
+        finally:
+            training.make_train_step = orig_make
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        say("(a) fit", fit_s)
+        bad = [x for x in step_losses if not all(map(math.isfinite, x))]
+        bad += [h for h in hist if not all(
+            math.isfinite(v) for k, v in h.items() if "loss" in k)]
+        if bad or len(step_losses) != S1T_EPOCHS * S1T_STEPS:
+            raise AssertionError(f"stage-1 losses: {bad or step_losses}")
+        params = dict(model.named_parameters())
+        frozen_moved = [k for k in before if k not in trainable
+                        and not torch.equal(params[k], before[k])]
+        heads_still = [k for k in trainable
+                       if torch.equal(params[k], before[k])]
+        if frozen_moved or heads_still:
+            raise AssertionError(f"frozen tensors moved: {frozen_moved[:4]};"
+                                 f" mask-head tensors unmoved: "
+                                 f"{heads_still[:4]}")
+        del before
+        # checkpoint-last reloads bitwise: into fresh tensors, then written
+        # again, against the model and the file
+        last = WORK / "stage1_train" / "checkpoint-last.npz"
+        fresh = {k: torch.zeros_like(params[k]) for k in trainable}
+        opt = training.adamw_init(fresh)
+        t2 = time.perf_counter()
+        got = train_loop._load_ckpt(str(last), fresh, opt)
+        load_s = time.perf_counter() - t2
+        again = WORK / "stage1_train" / "reloaded.npz"
+        train_loop._save_ckpt(str(again), fresh, opt, *got)
+        za, zb = np.load(last), np.load(again)
+        differ = [k for k in za.files if not np.array_equal(za[k], zb[k])]
+        differ += [k for k in trainable if not torch.equal(fresh[k],
+                                                           params[k])]
+        if differ or sorted(za.files) != sorted(zb.files):
+            raise AssertionError(f"checkpoint-last does not reload "
+                                 f"bitwise: {differ[:4]}")
+        ckpt_bytes = os.path.getsize(last)
+        n_trainable = sum(params[k].numel() for k in trainable)
+        del fresh, opt, za, zb
+        # the mask BCE on one fixed batch, 5 steps at the recipe's lr,
+        # then one step under the profiler
+        img1, img2, b = next(batch_iterator(train_ds, S1T_BATCH, seed=0))
+        img1 = torch.as_tensor(img1, device=dev)
+        img2 = torch.as_tensor(img2, device=dev)
+        b = b.to(dev)
+        bcfg = training.Stage1TrainConfig(warmup_epochs=0.0, epochs=10**6)
+        train, _ = training.split_params(model, bcfg.freeze)
+        step = training.make_train_step(model, bcfg)
+        opt = training.adamw_init(train)
+        bce = [float(o.mask_1 + o.mask_2) for o in (
+            step(train, opt, img1, img2, b, i)
+            for i in range(S1T_BCE_STEPS))]
+        if not bce[-1] < bce[0]:
+            raise AssertionError(f"the mask BCE did not fall: {bce}")
+        prof, _ = profile_call(lambda: step(train, opt, img1, img2, b,
+                                            S1T_BCE_STEPS), top=12)
+        del model, train, opt, step, params, img1, img2, b
+        torch.cuda.empty_cache()
+        full = dict(
+            config="DUST3R_LARGE_CONFIG", freeze=tcfg.freeze, lr=tcfg.lr,
+            b2=tcfg.b2, weight_decay=tcfg.weight_decay,
+            resolution=list(S1T_RES), batch=S1T_BATCH, epochs=S1T_EPOCHS,
+            steps_per_epoch=S1T_STEPS, trainable_params=n_trainable,
+            render_data_s=render_s, fit_s=fit_s,
+            step_ms=[1e3 * t for t in step_s],
+            step_ms_median_2_8=1e3 * statistics.median(step_s[1:8]),
+            checkpoint_writes=len(ckpt.seconds),
+            checkpoint_s=ckpt.seconds, checkpoint_bytes=ckpt_bytes,
+            checkpoint_load_s=load_s, peak_mem_gb=peak_gb,
+            losses=step_losses, history=hist, mask_bce_5_steps=bce,
+            profile_one_step=prof)
+
+        # (b) TINY from scratch at JAX's recorded setting
+        t0 = time.perf_counter()
+        tiny_train = _Rendered(WallTwoViewDataset(
+            n=TINY_RUN["n_train"], resolution=TINY_RUN["res"],
+            seed=TINY_RUN["train_seed"]))
+        tiny_test = _Rendered(WallTwoViewDataset(
+            n=TINY_RUN["n_test"], resolution=TINY_RUN["res"],
+            seed=TINY_RUN["test_seed"]))
+        tiny_render_s = time.perf_counter() - t0
+        say("(a) checks done; (b) data rendered", tiny_render_s)
+        epochs = TINY_RUN["epochs"]
+        steps = TINY_RUN["n_train"] // TINY_RUN["batch"]
+        tcfg = training.Stage1TrainConfig(
+            lr=TINY_RUN["lr"], epochs=epochs, steps_per_epoch=steps,
+            warmup_epochs=max(1.0, epochs * 0.05), freeze="none")
+        # checkpoint-last once, at the end (the script's default writes
+        # all 72M parameters and their moments, ~870 MB, every epoch)
+        lcfg = train_loop.Stage1LoopConfig(
+            epochs=epochs, batch_size=TINY_RUN["batch"],
+            eval_freq=max(1, epochs // 10), save_freq=epochs,
+            out_dir=str(WORK / "tiny"))
+        model = tiny_model(dev)
+        with _Timed(train_loop, "_save_ckpt") as ckpt, \
+                _Timed(train_loop, "evaluate_stats") as evals:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, hist = train_loop.fit(model, tiny_train, {"wall": tiny_test},
+                                     tcfg, lcfg, progress=lambda *_: None,
+                                     device=dev)
+            torch.cuda.synchronize()
+            tiny_s = time.perf_counter() - t1
+        say("(b) fit", tiny_s)
+        iou = tiny_mask_iou(model, tiny_test, dev)
+        train_loop.save_params_npz(str(WORK / "tiny" / "stage1_tiny.npz"),
+                                   model)
+        if not (iou >= TINY_IOU_BAR and all(
+                math.isfinite(h["train_loss"]) for h in hist)):
+            raise AssertionError(f"TINY held-out mask IoU {iou} < "
+                                 f"{TINY_IOU_BAR}: {hist[-1]}")
+        loop_s = tiny_s - sum(ckpt.seconds) - sum(evals.seconds)
+        tiny = dict(
+            heldout_mask_iou=iou, jax_record_iou=JAX_TINY_IOU,
+            iou_bar=TINY_IOU_BAR, epochs=epochs, steps=epochs * steps,
+            n_train=TINY_RUN["n_train"], resolution=list(TINY_RUN["res"]),
+            lr=TINY_RUN["lr"], freeze="none", render_data_s=tiny_render_s,
+            fit_s=tiny_s, checkpoint_writes=len(ckpt.seconds),
+            checkpoint_s=sum(ckpt.seconds), test_passes=len(evals.seconds),
+            test_s=sum(evals.seconds),
+            step_ms_loop=1e3 * loop_s / (epochs * steps),
+            first_train_loss=hist[0]["train_loss"],
+            final_train_loss=hist[-1]["train_loss"],
+            test_loss_med=[h.get("test_wall_loss_med") for h in hist
+                           if "test_wall_loss_med" in h])
+        t0 = time.perf_counter()
+        first = next(batch_iterator(tiny_train, S1T_CPU_BATCH, seed=0))
+        tiny["card_vs_cpu"] = stage1_card_vs_cpu(first, dev)
+        tiny["card_vs_cpu_s"] = time.perf_counter() - t0
+
+        say("(b) card against CPU done")
+        # (c) pose evaluation on a synthetic tum layout, (b)'s model
+        seq = "rgbd_synthetic_wall"
+        gen, root = WORK / "pose_gen", WORK / "pose_data"
+        synthetic.make_synthetic_stage1_dir(str(gen), n_frames=POSE_FRAMES,
+                                            height=HEIGHT, width=WIDTH,
+                                            seed=SEED + 14)
+        seq_dir = root / "tum" / seq
+        (seq_dir / "rgb_50").mkdir(parents=True)
+        for f in sorted(gen.glob("frame_*.png")):
+            shutil.copy(f, seq_dir / "rgb_50")
+        shutil.copy(gen / "pred_traj.txt", seq_dir / "groundtruth_50.txt")
+        t0 = time.perf_counter()
+        _, summary = pose_eval.eval_pose_estimation(
+            "tum", str(root), str(WORK / "pose_out"), model,
+            alignment.AlignerConfig(niter=POSE_ITERS), seq_list=[seq],
+            verbose=lambda *_: None, device=dev)
+        pose_s = time.perf_counter() - t0
+        if not (summary["n_ok"] == summary["n_sequences"] == 1
+                and math.isfinite(summary["mean_ate"])):
+            raise AssertionError(f"pose evaluation: {summary}")
+        pose = dict(frames=POSE_FRAMES, height=HEIGHT, width=WIDTH,
+                    niter=POSE_ITERS, seconds=pose_s, **summary)
+        return full, tiny, pose
+
+    (full, tiny, pose), launches = run_counted(main_path)
+    if any(launches.values()):
+        raise AssertionError(f"stage-1 training launched a raster kernel: "
+                             f"{launches}")
+    emit("stage1_train", full_width=full, tiny=tiny, pose_eval=pose,
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -3107,6 +3495,8 @@ def main() -> int:
         stage1 = phase_stage1(sd, "cuda")
         torch.cuda.empty_cache()
         pipe = phase_pipeline(sd, "cuda")
+        torch.cuda.empty_cache()
+        s1_train = phase_stage1_train(sd, "cuda")
         del sd
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -3130,6 +3520,7 @@ def main() -> int:
             "gui_24_panels": gui.get(k, 0),
             "stage1_16_frames": stage1[k],
             f"pipeline_{PIPELINE_ITERS}_iters": pipe[k],
+            "stage1_train": s1_train[k],
             f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0),
             f"sharded_window_2_ranks_{SHARDED_STEPS}_steps":
                 sharded_win.get(k, 0),

@@ -4,9 +4,12 @@ convert.py``).
 The port's modules carry the reference checkpoint's names (dust3r/model.py
 and the croco modules; ``Kai422kx/das3r``), so a checkpoint's state dict
 loads as it is, bar the three quirks the JAX converter handles
-(``load_reference_state_dict``). ``state_dict_from_jax_params`` is the
-inverse of the JAX package's ``convert_torch_state_dict``: it takes the
-flax ``params`` tree (numpy leaves) to the port's state dict.
+(``load_reference_state_dict``). ``jax_params_from_state_dict`` is the
+port's copy of the JAX package's ``convert_torch_state_dict`` (a state
+dict to the flax ``params`` tree of numpy leaves) and
+``state_dict_from_jax_params`` its inverse; both go leaf by leaf through
+``to_jax`` / ``from_jax``, which stage-1 training's checkpoints use to
+write JAX's names (``keystr``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 from das3r_tpu_torch.models.croco.dust3r import (DUST3R_LARGE_CONFIG,
+                                                 AsymmetricCroCo3D,
                                                  Dust3rConfig)
 
 HEADS = {"downstream_head1": "regression", "downstream_head2": "regression",
@@ -105,63 +109,156 @@ def read_checkpoint(path: str) -> tuple[dict, Dust3rConfig]:
     return state, config_from_state_dict(state, getattr(args, "model", None))
 
 
-def _linear(out, prefix, p):
-    out[prefix + ".weight"] = p["kernel"].T
-    out[prefix + ".bias"] = p["bias"]
+# The JAX package's flax tree, leaf by leaf: each key of the port's state
+# dict has one leaf there (``jax_path``), which is the tensor transposed
+# or reshaped (``to_jax`` / ``from_jax``):
+#   Linear            kernel = W.T
+#   LayerNorm         scale = weight
+#   Conv2d            kernel = W.transpose(2, 3, 1, 0)        (HWIO)
+#   patchify Conv2d   kernel = W.reshape(D, -1).T              (a Dense)
+#   ConvTranspose2d   kernel = W.reshape(C_in, -1); bias repeated k*k
+#                     times ([C_out, k, k] when untied: dpt.py)
+_ACT = {("0", "0"): "act_0_proj", ("0", "1"): "act_0_up",
+        ("1", "0"): "act_1_proj", ("1", "1"): "act_1_up",
+        ("2", "0"): "act_2_proj", ("3", "0"): "act_3_proj",
+        ("3", "1"): "act_3_down"}
+_UP = {"act_0_up": 4, "act_1_up": 2}
+_HEAD_CONV = {"regression": {"0": "head_conv1", "2": "head_conv2",
+                             "4": "head_conv3"},
+              "semseg": {"0": "head_conv1", "4": "head_conv2"}}
 
 
-def _layernorm(out, prefix, p):
-    out[prefix + ".weight"] = p["scale"]
-    out[prefix + ".bias"] = p["bias"]
+def _leaf(name: str) -> tuple[tuple[str, ...], str]:
+    """(JAX path, kind) of the state-dict key ``name``; kind is one of
+    linear, norm, conv, patch, up (a ConvTranspose2d's weight), up_bias,
+    bias."""
+    parts = name.split(".")
+    top, leaf = parts[0], parts[-1]
+    if top == "patch_embed":
+        return (("patch_embed", "proj", "kernel" if leaf == "weight"
+                 else "bias"), "patch" if leaf == "weight" else "bias")
+    if top in HEADS:
+        rest = parts[2:-1]                      # past "<head>.dpt"
+        if rest[0] == "act_postprocess":
+            mod = _ACT[tuple(rest[1:3])]
+            if mod in _UP:
+                return ((top, mod, "proj", "kernel" if leaf == "weight"
+                         else "bias"), "up" if leaf == "weight"
+                        else "up_bias")
+            path = (top, mod)
+        elif rest[:2] == ["scratch", "layer_rn"]:
+            path = (top, f"layer_rn_{rest[2]}")
+        elif rest[0] == "scratch":
+            path = (top, *rest[1:])
+        else:
+            path = (top, _HEAD_CONV[HEADS[top]][rest[1]])
+        return ((*path, "kernel" if leaf == "weight" else "bias"),
+                "conv" if leaf == "weight" else "bias")
+    path = ((f"{top}_{parts[1]}", *parts[2:-1])
+            if top in ("enc_blocks", "dec_blocks", "dec_blocks2")
+            else (top,))
+    if path[-1].startswith("norm") or top in ("enc_norm", "dec_norm"):
+        return ((*path, "scale" if leaf == "weight" else "bias"),
+                "norm" if leaf == "weight" else "bias")
+    return ((*path, "kernel" if leaf == "weight" else "bias"),
+            "linear" if leaf == "weight" else "bias")
 
 
-def _conv(out, prefix, p):
-    out[prefix + ".weight"] = p["kernel"].transpose(3, 2, 0, 1)
-    if "bias" in p:
-        out[prefix + ".bias"] = p["bias"]
+def jax_path(name: str) -> tuple[str, ...]:
+    """The path of the state-dict key ``name`` in the JAX params tree."""
+    return _leaf(name)[0]
 
 
-def _convtranspose(out, prefix, p, k):
-    kernel = p["proj"]["kernel"]                     # [in, out * k * k]
-    out[prefix + ".weight"] = kernel.reshape(kernel.shape[0], -1, k, k)
-    out[prefix + ".bias"] = p["proj"]["bias"].reshape(-1, k * k)[:, 0]
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys:
+    ``['params']['enc_norm']['scale']``."""
+    return "".join(f"[{p!r}]" for p in path)
 
 
-def _block(out, prefix, p, decoder: bool):
-    norms = ("norm1", "norm2") + (("norm3", "norm_y") if decoder else ())
-    for ln in norms:
-        _layernorm(out, f"{prefix}.{ln}", p[ln])
-    for nm in ("qkv", "proj"):
-        _linear(out, f"{prefix}.attn.{nm}", p["attn"][nm])
-    for nm in ("fc1", "fc2"):
-        _linear(out, f"{prefix}.mlp.{nm}", p["mlp"][nm])
-    if decoder:
-        for nm in ("projq", "projk", "projv", "proj"):
-            _linear(out, f"{prefix}.cross_attn.{nm}", p["cross_attn"][nm])
+def to_jax(name: str, x) -> np.ndarray:
+    """The state-dict tensor ``name`` (numpy, or a tensor, laid out on its
+    device and then copied to the host) as its JAX leaf."""
+    path, kind = _leaf(name)
+    if torch.is_tensor(x):
+        x = x.detach()
+        perm, repeat = x.permute, x.repeat_interleave
+    else:
+        perm, repeat = x.transpose, lambda n: np.repeat(x, n)
+    if kind == "linear":
+        y = x.T
+    elif kind == "conv":
+        y = perm(2, 3, 1, 0)
+    elif kind == "patch":
+        y = x.reshape(x.shape[0], -1).T
+    elif kind == "up":
+        y = x.reshape(x.shape[0], -1)
+    elif kind == "up_bias":
+        y = repeat(_UP[path[1]] ** 2) if x.ndim == 1 else x.reshape(-1)
+    else:
+        y = x
+    if torch.is_tensor(y):
+        return y.contiguous().cpu().numpy()
+    return np.ascontiguousarray(y)
 
 
-def _dpt_head(out, prefix, h, head_type):
-    d = prefix + ".dpt"
-    _conv(out, f"{d}.act_postprocess.0.0", h["act_0_proj"])
-    _convtranspose(out, f"{d}.act_postprocess.0.1", h["act_0_up"], 4)
-    _conv(out, f"{d}.act_postprocess.1.0", h["act_1_proj"])
-    _convtranspose(out, f"{d}.act_postprocess.1.1", h["act_1_up"], 2)
-    _conv(out, f"{d}.act_postprocess.2.0", h["act_2_proj"])
-    _conv(out, f"{d}.act_postprocess.3.0", h["act_3_proj"])
-    _conv(out, f"{d}.act_postprocess.3.1", h["act_3_down"])
-    for i in range(4):
-        _conv(out, f"{d}.scratch.layer_rn.{i}", h[f"layer_rn_{i}"])
-    for j in range(1, 5):
-        rf = h[f"refinenet{j}"]
-        for unit in ("resConfUnit1", "resConfUnit2"):
-            if unit in rf:
-                for c in ("conv1", "conv2"):
-                    _conv(out, f"{d}.scratch.refinenet{j}.{unit}.{c}",
-                          rf[unit][c])
-        _conv(out, f"{d}.scratch.refinenet{j}.out_conv", rf["out_conv"])
-    convs = ((0, 2, 4) if head_type == "regression" else (0, 4))
-    for n, idx in enumerate(convs, 1):
-        _conv(out, f"{d}.head.{idx}", h[f"head_conv{n}"])
+def from_jax(name: str, y: np.ndarray, shape) -> np.ndarray:
+    """The inverse of ``to_jax``: the JAX leaf of ``name`` as a state-dict
+    tensor of ``shape`` (a tied ConvTranspose2d bias takes the first of
+    each channel's k*k entries, as the JAX package's converter wrote
+    them)."""
+    path, kind = _leaf(name)
+    if kind == "linear":
+        x = y.T
+    elif kind == "conv":
+        x = y.transpose(3, 2, 0, 1)
+    elif kind == "patch":
+        x = y.T.reshape(shape)
+    elif kind == "up_bias" and len(shape) == 1:
+        x = y.reshape(shape[0], -1)[:, 0]
+    else:
+        x = y.reshape(shape)
+    return np.ascontiguousarray(x)
+
+
+def _model_state(cfg: Dust3rConfig) -> dict:
+    """The state dict of a ``cfg`` predictor on the meta device: its keys
+    and shapes, no storage."""
+    with torch.device("meta"):
+        return AsymmetricCroCo3D(cfg).state_dict()
+
+
+def jax_params_from_state_dict(state: dict,
+                               cfg: Dust3rConfig = DUST3R_LARGE_CONFIG
+                               ) -> dict:
+    """A reference state dict (numpy arrays or tensors) -> the JAX
+    package's flax ``params`` tree of numpy arrays: the port's copy of its
+    ``convert_torch_state_dict``, the reference's quirks included
+    (``_source_key``; refinenet4's dead unit dropped). A key the dict
+    lacks leaves its leaf out, so the mask heads' tensors alone give the
+    trainable tree of stage-1 training."""
+    if cfg.head_type != "dpt":
+        raise ValueError("the JAX converter covers DPT heads only")
+    out: dict = {}
+    for k in _model_state(cfg):
+        src = _source_key(k, state)
+        if src not in state:
+            continue
+        x = state[src]
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+        *parents, leaf = jax_path(k)
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = to_jax(k, x)
+    return out
+
+
+def jax_leaf(params: dict, name: str) -> np.ndarray:
+    """The leaf of state-dict key ``name`` in the JAX tree ``params``."""
+    node = params
+    for p in jax_path(name):
+        node = node[p]
+    return np.asarray(node)
 
 
 def state_dict_from_jax_params(params: dict,
@@ -172,21 +269,5 @@ def state_dict_from_jax_params(params: dict,
     leaf."""
     if cfg.head_type != "dpt":
         raise ValueError("the JAX converter covers DPT heads only")
-    p = params
-    out: dict = {}
-    pe = p["patch_embed"]["proj"]
-    out["patch_embed.proj.weight"] = pe["kernel"].T.reshape(
-        -1, 3, cfg.patch_size, cfg.patch_size)
-    out["patch_embed.proj.bias"] = pe["bias"]
-    for i in range(cfg.enc_depth):
-        _block(out, f"enc_blocks.{i}", p[f"enc_blocks_{i}"], decoder=False)
-    _layernorm(out, "enc_norm", p["enc_norm"])
-    _linear(out, "decoder_embed", p["decoder_embed"])
-    for i in range(cfg.dec_depth):
-        _block(out, f"dec_blocks.{i}", p[f"dec_blocks_{i}"], decoder=True)
-        _block(out, f"dec_blocks2.{i}", p[f"dec_blocks2_{i}"], decoder=True)
-    _layernorm(out, "dec_norm", p["dec_norm"])
-    for name, head_type in HEADS.items():
-        _dpt_head(out, name, p[name], head_type)
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in out.items()}
+    return {k: torch.from_numpy(from_jax(k, jax_leaf(params, k), v.shape))
+            for k, v in _model_state(cfg).items()}

@@ -40,6 +40,42 @@ def PixelShuffleUp(cin: int, cout: int, factor: int) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(cin, cout, factor, stride=factor)
 
 
+class UntiedConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d(k = stride) with one bias per output channel and
+    kernel tap, ``bias`` [C_out, k, k]: the JAX package's Dense of
+    C_out·k·k outputs, whose bias entries train apart (its converter
+    repeats the reference's [C_out] bias k·k times)."""
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        B, C, H, W = y.shape
+        k = self.stride[0]
+        y = (y.view(B, C, H // k, k, W // k, k)
+             + self.bias[:, None, :, None, :])
+        return y.view(B, C, H, W)
+
+
+def untie_upsample_bias(model: nn.Module) -> None:
+    """Replace every ``PixelShuffleUp`` of ``model`` by an
+    ``UntiedConvTranspose2d`` holding the same function (its bias copied
+    to every tap), in place; the one already untied stay as they are.
+    Stage-1 training does this first, so that the port trains JAX's
+    parameters (``predictor/training.py``)."""
+    for name, m in list(model.named_modules()):
+        if type(m) is not nn.ConvTranspose2d:
+            continue
+        k = m.stride[0]
+        new = UntiedConvTranspose2d(m.in_channels, m.out_channels, k,
+                                    stride=k, device=m.weight.device,
+                                    dtype=m.weight.dtype)
+        with torch.no_grad():
+            new.weight.copy_(m.weight)
+            new.bias = nn.Parameter(
+                m.bias.detach()[:, None, None].repeat(1, k, k))
+        parent, _, child = name.rpartition(".")
+        setattr(model.get_submodule(parent), child, new)
+
+
 class ResidualConvUnit(nn.Module):
     def __init__(self, features: int):
         super().__init__()

@@ -110,3 +110,24 @@ def sum_grads(group, tag: str, *xs: torch.Tensor):
     if size(group) == 1:
         return xs
     return _SumGrads.apply(group, tag, *xs)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        return all_reduce(x.detach().clone(), group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_sum(x: torch.Tensor, group, tag: str = "") -> torch.Tensor:
+    """``x`` summed over ``group``, differentiable: the gradient of this
+    rank's term is the gradient of the sum. Every rank computes the same
+    function of the sum (a global masked mean), so the gradient each rank
+    holds is already that of its own term; the ranks' parameter gradients
+    are summed afterwards."""
+    if size(group) == 1:
+        return x
+    return _ReduceSum.apply(x, group, tag)

@@ -2,6 +2,7 @@
 import hygiene, and its no-silent-CPU device rule."""
 import ast
 import math
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -154,6 +155,34 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
                   bg=torch.zeros(3), tan_fovx=0.5, tan_fovy=0.5,
                   colors_precomp=torch.ones(10, 3),
                   scales=torch.ones(10, 3), rotations=params.rotation)
+
+    # stage-1 training and the pose evaluation: no silent fall-back (the
+    # pose evaluation catches each sequence's failure, so it resolves its
+    # device before the first); with device="cpu" both run
+    from das3r_tpu_torch.eval import pose_eval
+    from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
+    from das3r_tpu_torch.models.croco.testkit import TINY
+    from das3r_tpu_torch.predictor import alignment, train_loop, training
+    from das3r_tpu_torch.predictor.datasets import SyntheticTwoViewDataset
+    model = AsymmetricCroCo3D(TINY)
+    fit_args = (model, SyntheticTwoViewDataset(n=2, resolution=(48, 32)),
+                {}, training.Stage1TrainConfig(),
+                train_loop.Stage1LoopConfig(epochs=0,
+                                            out_dir=str(tmp_path / "s1")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.fit(*fit_args, progress=lambda *_: None)
+    assert not (tmp_path / "s1").exists()
+    _, hist = train_loop.fit(*fit_args, progress=lambda *_: None,
+                             device="cpu")
+    assert hist == [] and (tmp_path / "s1" / "checkpoint-final.npz").exists()
+    shutil.rmtree(tmp_path / "s1")
+    pose_args = ("tum", str(tmp_path), str(tmp_path), model,
+                 alignment.AlignerConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pose_eval.eval_pose_estimation(*pose_args, seq_list=["none"])
+    _, summary = pose_eval.eval_pose_estimation(
+        *pose_args, seq_list=["none"], verbose=lambda *_: None, device="cpu")
+    assert (summary["n_sequences"], summary["n_ok"]) == (1, 0)
 
 
 def test_kernel_wrappers_reject_bad_input():

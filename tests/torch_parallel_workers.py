@@ -1,4 +1,5 @@
-"""The ranks of ``tests/test_torch_parallel.py``. Each runs in a process of
+"""The ranks of ``tests/test_torch_parallel.py`` (and the stage-1 step of
+``tests/test_torch_stage1_training.py``). Each runs in a process of
 its own, spawned by the test, on the CPU, joined to a gloo group through a
 ``file://`` store; it reads the scene that the test wrote (``scene.npz``,
 ``scene.json``) and writes its results beside it. The module imports
@@ -14,9 +15,15 @@ import torch
 import torch.distributed as dist
 
 from das3r_tpu_torch.models import gaussians
+from das3r_tpu_torch.models.croco import convert
+from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
+from das3r_tpu_torch.models.croco.testkit import (TINY,
+                                                  random_torch_state_dict)
 from das3r_tpu_torch.ops.splat import RasterSettings
 from das3r_tpu_torch.parallel import comm_stats, multihost, sharded
 from das3r_tpu_torch.parallel.mesh import make_mesh
+from das3r_tpu_torch.predictor import training
+from das3r_tpu_torch.predictor.losses import Stage1Batch
 from das3r_tpu_torch.train import step as step_mod
 from das3r_tpu_torch.train.config import OptimizationConfig
 
@@ -108,8 +115,32 @@ def task_window_tile(work: Path) -> dict:
     return run_step(work, make_mesh(tile=2), entry_stream=False)
 
 
+def task_stage1_step(work: Path) -> dict:
+    """One stage-1 step at (data=2) on the batch of ``stage1.npz``, each
+    rank on its half, from the TINY model of its seed: two ranks (for
+    ``tests/test_torch_stage1_training.py``)."""
+    z = np.load(work / "stage1.npz")
+    mesh = make_mesh(data=2)
+    model = AsymmetricCroCo3D(TINY)
+    convert.load_reference_state_dict(model, random_torch_state_dict(
+        TINY, np.random.default_rng(int(z["seed"]))))
+    train, _ = training.split_params(model)
+    cfg = training.Stage1TrainConfig(**json.loads(str(z["cfg"])))
+    n = z["img1"].shape[0] // mesh.shape["data"]
+    rows = slice(mesh.coords["data"] * n, (mesh.coords["data"] + 1) * n)
+    batch = Stage1Batch(*(z[f][rows] for f in Stage1Batch._fields))
+    step = training.make_train_step(model, cfg, group=mesh.group("data"))
+    out = step(train, training.adamw_init(train),
+               torch.as_tensor(z["img1"][rows]),
+               torch.as_tensor(z["img2"][rows]), batch.to("cpu"), 0)
+    return dict(loss=[float(x) for x in out],
+                params={k: convert.to_jax(k, p.detach().numpy())
+                        for k, p in train.items()})
+
+
 TASKS = {"render_and_steps": task_render_and_steps, "comm": task_comm,
-         "jax_mesh": task_jax_mesh, "window_tile": task_window_tile}
+         "jax_mesh": task_jax_mesh, "window_tile": task_window_tile,
+         "stage1_step": task_stage1_step}
 
 
 def run(rank: int, world: int, work: str, task: str) -> None:
