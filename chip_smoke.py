@@ -194,7 +194,23 @@ failure:
    card against the CPU (losses, and at Adam eps 1e-2 the mask heads,
    within 1e-4 x max|CPU|). (c) ``eval_pose_estimation`` on a synthetic
    ``tum`` layout (8 frames at 288x512) with (b)'s model: every sequence
-   evaluated, a finite ATE.
+   evaluated, a finite ATE. (e) ``run_scene`` with RAFT flows on (b)'s
+   learnt model (6 synthetic frames at 64x96, every setting at its
+   default): a static share strictly between 0 and 1, the alignment's
+   loss falling; each stage against the port on the CPU on the same
+   inputs (the pair predictions and the flows within 1e-4 x max|CPU|;
+   given the card's predictions and flows, the alignment's objective at
+   its start, flow term on, within 1e-4 relative, its masks bitwise).
+   (d) ``fit(mesh=make_mesh(data=2))`` on two gloo ranks sharing the
+   card (``stage1_fit_rank``; not a scaling number): (d1) TINY on (b)'s
+   data and recipe for 2 epochs (Adam eps 1e-2) against the one-rank
+   ``fit`` on the card: the history's losses within 1e-4 relative, the
+   mask heads within 1e-4 x max|one rank|, both ranks' parameters and
+   AdamW state bitwise equal, rank 1 writing no file; (d2) (a)'s recipe
+   at full width, a global batch of 8 (4 rows a rank), 3 steps: the
+   step ms, the ``stage1_grads`` all-reduce's bytes and calls a step,
+   each rank's render seconds against the one-rank render of the same
+   samples, and each rank's peak memory.
 
 Then the ``kernels`` line (A, B, C, B-bf16 and C-bf16 at the trainer
 scene with their random-scene numbers under ``random_scene``; B, C, D and
@@ -301,6 +317,15 @@ S1T_CPU_BATCH = 2            # pairs: the CPU's steps of the 72M-parameter
 S1T_SMOOTH_EPS = 1e-2
 POSE_FRAMES = 8
 POSE_ITERS = 50
+# (d) fit(mesh=make_mesh(data=2)) on two gloo ranks sharing the card
+S1T_DP_EPOCHS = 2            # (d1): TINY, (b)'s data and recipe
+S1T_DP_BAR = 1e-4            # losses rel., mask heads x max|one rank|
+S1T_DP_STEPS = 3             # (d2): full width, global batch S1T_BATCH
+S1T_DP_TIMEOUT = 420         # s, both ranks, start-up included
+# (e) stage 1 with RAFT flows on (b)'s learnt TINY weights
+LEARNT_FRAMES = 6            # at 48x64, run at size 96 (64x96 frames:
+LEARNT_SIZE = 96             # RAFT's 1/8 maps of 8 rows)
+LEARNT_BAR = 1e-4            # x max|CPU|: the runner's end-to-end bar
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -1141,14 +1166,14 @@ def phase_train_profile(one_step, phase: str = "train_profile"):
 
 class _Timed:
     """Wrap ``module.name`` while inside: each call's seconds (after a
-    synchronize) and its result are kept, and its kernel launches (the
-    counts' change across the call) summed into ``launches``, so that one
-    stage of an entry point can be timed and counted without running it
-    twice."""
+    synchronize), its arguments and its result are kept, and its kernel
+    launches (the counts' change across the call) summed into
+    ``launches``, so that one stage of an entry point can be timed,
+    counted and checked without running it twice."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
-        self.seconds, self.results = [], []
+        self.seconds, self.args, self.results = [], [], []
         self.launches = collections.Counter()
 
     def __enter__(self):
@@ -1163,6 +1188,7 @@ class _Timed:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
+            self.args.append((args, kw))
             self.results.append(out)
             self.launches.update({k: f.launches - before[k]
                                   for k, f in counted.items()})
@@ -3088,16 +3114,26 @@ def phase_pipeline(sd, dev):
 
 
 class _Rendered:
-    """A dataset's samples made once: rendering counts as set-up."""
+    """A dataset whose every render's seconds are kept (``seconds``, one a
+    sample rendered): its samples are made once up front, rendering as
+    set-up, or with ``eager=False`` each time one is asked for."""
 
-    def __init__(self, dataset):
-        self.items = [dataset[i] for i in range(len(dataset))]
+    def __init__(self, dataset, eager: bool = True):
+        self.dataset, self.seconds, self.items = dataset, [], None
+        if eager:
+            self.items = [self._render(i) for i in range(len(dataset))]
+
+    def _render(self, i):
+        t0 = time.perf_counter()
+        out = self.dataset[i]
+        self.seconds.append(time.perf_counter() - t0)
+        return out
 
     def __len__(self):
-        return len(self.items)
+        return len(self.dataset)
 
     def __getitem__(self, i):
-        return self.items[i]
+        return self._render(i) if self.items is None else self.items[i]
 
 
 def _timed_steps(orig, times: list, losses: list):
@@ -3207,6 +3243,386 @@ def stage1_card_vs_cpu(batch, dev) -> dict:
     return out
 
 
+def stage1_fit_args(work: Path, spec: dict, device):
+    """(model, train set, test sets, train config, loop config) of a data-
+    parallel part from its ``spec`` and ``weights.npz`` under ``work``,
+    the model made on ``device`` (its initialization on the host takes
+    seconds at full width); the sets render when asked
+    (``_Rendered(eager=False)``)."""
+    import numpy as np
+    import torch
+    from das3r_tpu_torch.models.croco.convert import load_reference_state_dict
+    from das3r_tpu_torch.models.croco.dust3r import (DUST3R_LARGE_CONFIG,
+                                                     AsymmetricCroCo3D)
+    from das3r_tpu_torch.models.croco.testkit import TINY
+    from das3r_tpu_torch.predictor import train_loop, training
+    from das3r_tpu_torch.predictor.datasets import WallTwoViewDataset
+    with torch.device(device):
+        model = AsymmetricCroCo3D(TINY if spec["config"] == "TINY"
+                                  else DUST3R_LARGE_CONFIG)
+    with np.load(work / "weights.npz") as z:
+        load_reference_state_dict(model, dict(z))
+    return (model, _Rendered(WallTwoViewDataset(**spec["train"]), False),
+            {"wall": _Rendered(WallTwoViewDataset(**spec["test"]), False)},
+            training.Stage1TrainConfig(**spec["train_cfg"]),
+            train_loop.Stage1LoopConfig(**spec["loop"]))
+
+
+class Stage1FitProbe:
+    """While entered, counts each file that ``train_loop.fit`` writes, by
+    name (``wrote``), and keeps each fit's trainable parameters and AdamW
+    state (``states``, from ``training.adamw_init``): ``digest()`` hashes
+    the last. Used by the data-parallel ranks here and in
+    ``tests/torch_parallel_workers.py``."""
+
+    def __enter__(self):
+        from das3r_tpu_torch.predictor import train_loop, training
+        self.wrote, self.states = collections.Counter(), []
+        self._orig = (train_loop._save_ckpt, train_loop._log_epoch,
+                      training.adamw_init)
+
+        def counted(fn):
+            def write(path, *args):
+                self.wrote[Path(path).name] += 1
+                return fn(path, *args)
+            return write
+
+        def init(params):
+            self.states.append((params, self._orig[2](params)))
+            return self.states[-1][1]
+        train_loop._save_ckpt = counted(self._orig[0])
+        train_loop._log_epoch = counted(self._orig[1])
+        training.adamw_init = init
+        return self
+
+    def __exit__(self, *exc):
+        from das3r_tpu_torch.predictor import train_loop, training
+        (train_loop._save_ckpt, train_loop._log_epoch,
+         training.adamw_init) = self._orig
+
+    def digest(self) -> str:
+        """One hash of the last fit's trainable tensors and AdamW state."""
+        import hashlib
+        params, opt = self.states[-1]
+        h = hashlib.sha256()
+        for tree in (params, opt.mu, opt.nu):
+            for k, v in tree.items():
+                h.update(k.encode())
+                h.update(v.detach().cpu().numpy().tobytes())
+        h.update(opt.count.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+
+def stage1_fit_rank(rank: int, work: str, device: str) -> None:
+    """One of the two ranks of ``stage1_fit_parallel``, in a process of its
+    own on ``device`` (``cuda``: both ranks on card 0, gloo):
+    ``train_loop.fit(mesh=make_mesh(data=2))`` on the part in
+    ``spec.json``, into ``out/``. Writes ``rank<r>.json``: the history,
+    the steps' ms and losses, a hash of the parameters and AdamW state,
+    the files this rank wrote, its render seconds, its collectives, its
+    peak memory and its raster-kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from das3r_tpu_torch.parallel import comm_stats, multihost
+    from das3r_tpu_torch.parallel.mesh import make_mesh
+    from das3r_tpu_torch.predictor import train_loop, training
+
+    t_start = time.perf_counter()
+    work = Path(work)
+    spec = json.loads((work / "spec.json").read_text())
+    multihost.initialize_distributed(f"file://{work / 'store'}", 2, rank,
+                                     device=device)
+    try:
+        mesh = make_mesh(data=2)
+        model, train, tests, tcfg, lcfg = stage1_fit_args(work, spec,
+                                                          device)
+        lcfg = dataclasses.replace(lcfg, out_dir=str(work / "out"))
+        step_s, step_losses = [], []
+        make_step = training.make_train_step
+        training.make_train_step = _timed_steps(make_step, step_s,
+                                                step_losses)
+        if device.startswith("cuda"):
+            torch.cuda.reset_peak_memory_stats()
+        setup_s = time.perf_counter() - t_start
+        try:
+            with comm_stats.CommStats() as stats, Stage1FitProbe() as probe:
+                t0 = time.perf_counter()
+                (_, hist), launches = run_counted(lambda: train_loop.fit(
+                    model, train, tests, tcfg, lcfg, mesh=mesh,
+                    progress=lambda *_: None, device=device))
+                fit_s = time.perf_counter() - t0
+        finally:
+            training.make_train_step = make_step
+        grads = [b for _, tag, b in stats.calls if tag == "stage1_grads"]
+        sets = [train, *tests.values()]
+        out = dict(
+            rank=rank, history=hist, setup_s=setup_s, fit_s=fit_s,
+            step_ms=[1e3 * t for t in step_s], losses=step_losses,
+            digest=probe.digest(), wrote=dict(probe.wrote),
+            trainable_params=sum(p.numel()
+                                 for p in probe.states[-1][0].values()),
+            render_s=sum(sum(d.seconds) for d in sets),
+            rendered=sum(len(d.seconds) for d in sets),
+            grads_bytes_per_step=sum(grads) / max(len(step_s), 1),
+            grads_calls_per_step=len(grads) / max(len(step_s), 1),
+            comm=stats.families(), launches=launches,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 2**30
+                         if device.startswith("cuda") else None))
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def stage1_fit_parallel(name: str, spec: dict, weights: dict, dev):
+    """``stage1_fit_rank`` on two spawned ranks sharing ``dev``, on the
+    part ``spec`` from ``weights`` (the reference layout); each rank's
+    results and the part's work directory."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    work = WORK / f"stage1_dp_{name}"
+    work.mkdir(parents=True)
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    np.savez(work / "weights.npz", **weights)
+    write_s = time.perf_counter() - t0
+    ctx = mp.start_processes(stage1_fit_rank, args=(str(work), str(dev)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + S1T_DP_TIMEOUT
+    while not ctx.join(timeout=5):      # raises on a rank's failure
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            for proc in ctx.processes:
+                proc.join(10)
+            raise AssertionError(f"stage-1 ranks ({name}) ran past "
+                                 f"{S1T_DP_TIMEOUT} s")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r in ranks:
+        r.update(weights_write_s=write_s,
+                 ranks_s=time.perf_counter() - t0 - write_s)
+    return ranks, work
+
+
+def check_ranks(name: str, ranks: list, steps: int) -> None:
+    """What every data-parallel part must show: its steps, finite losses,
+    the same history and bitwise the same parameters and AdamW state on
+    both ranks, every file written by rank 0 alone, one ``stage1_grads``
+    all-reduce a step of the trainable parameters' float32 bytes, and no
+    raster kernel launched."""
+    import math
+    r0, r1 = ranks
+    bad = [r["rank"] for r in ranks if len(r["losses"]) != steps
+           or not all(math.isfinite(x) for row in r["losses"] for x in row)]
+    if bad:
+        raise AssertionError(f"stage-1 ranks ({name}): steps or losses of "
+                             f"ranks {bad}")
+    if r0["digest"] != r1["digest"] or r0["history"] != r1["history"]:
+        raise AssertionError(f"stage-1 ranks ({name}) differ: "
+                             f"{r0['digest']} {r1['digest']}")
+    if r1["wrote"] or not r0["wrote"].get("checkpoint-final.npz"):
+        raise AssertionError(f"stage-1 ranks ({name}) wrote {r0['wrote']} "
+                             f"and {r1['wrote']}")
+    for r in ranks:
+        if (r["grads_calls_per_step"] != 1 or r["grads_bytes_per_step"]
+                != 4 * r["trainable_params"]):
+            raise AssertionError(f"stage-1 ranks ({name}): stage1_grads "
+                                 f"{r['grads_calls_per_step']} calls, "
+                                 f"{r['grads_bytes_per_step']} B a step")
+        if any(r["launches"].values()):
+            raise AssertionError(f"stage-1 ranks ({name}) launched a raster "
+                                 f"kernel: {r['launches']}")
+
+
+def stage1_dp_tiny(dev) -> dict:
+    """(d1): TINY's ``fit`` on two ranks against the one-rank ``fit`` on
+    the card, (b)'s data and recipe for ``S1T_DP_EPOCHS`` epochs at Adam
+    eps ``S1T_SMOOTH_EPS``, a test pass every epoch."""
+    import numpy as np
+    from das3r_tpu_torch.predictor import train_loop
+    epochs = TINY_RUN["epochs"]
+    spec = dict(
+        config="TINY",
+        train=dict(n=TINY_RUN["n_train"], resolution=list(TINY_RUN["res"]),
+                   seed=TINY_RUN["train_seed"]),
+        test=dict(n=TINY_RUN["n_test"], resolution=list(TINY_RUN["res"]),
+                  seed=TINY_RUN["test_seed"]),
+        train_cfg=dict(lr=TINY_RUN["lr"], epochs=epochs,
+                       steps_per_epoch=TINY_RUN["n_train"]
+                       // TINY_RUN["batch"],
+                       warmup_epochs=max(1.0, epochs * 0.05), freeze="none",
+                       eps=S1T_SMOOTH_EPS),
+        loop=dict(epochs=S1T_DP_EPOCHS, batch_size=TINY_RUN["batch"],
+                  eval_freq=1, save_freq=S1T_DP_EPOCHS + 1))
+    ranks, work = stage1_fit_parallel("tiny", spec, tiny_weights(), dev)
+    steps = S1T_DP_EPOCHS * TINY_RUN["n_train"] // TINY_RUN["batch"]
+    check_ranks("d1", ranks, steps)
+    # the one-rank fit on the card, from the same files
+    model, train, tests, tcfg, lcfg = stage1_fit_args(work, spec, dev)
+    t0 = time.perf_counter()
+    _, one_hist = train_loop.fit(
+        model, train, tests, tcfg,
+        dataclasses.replace(lcfg, out_dir=str(work / "one")),
+        progress=lambda *_: None, device=dev)
+    one_s = time.perf_counter() - t0
+    loss_rel = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(ranks[0]["history"], one_hist)
+                   for k in w if "loss" in k)
+    with np.load(work / "out" / "checkpoint-final.npz") as zg, \
+            np.load(work / "one" / "checkpoint-final.npz") as zw:
+        heads = [k for k in zw.files if k.startswith("['params']")
+                 and "downstream_head_dynamic_mask" in k]
+        rels = {k: float(np.abs(zg[k] - zw[k]).max() / np.abs(zw[k]).max())
+                for k in heads}
+    shutil.rmtree(work)
+    out = dict(
+        epochs=S1T_DP_EPOCHS, steps=steps, eps=S1T_SMOOTH_EPS,
+        loss_rel=loss_rel, mask_heads_rel_worst=max(rels.values()),
+        mask_head_tensors=len(rels), bar=S1T_DP_BAR,
+        ranks_bitwise=True, rank1_wrote=ranks[1]["wrote"],
+        rank0_wrote=ranks[0]["wrote"], fit_s=[r["fit_s"] for r in ranks],
+        setup_s=[r["setup_s"] for r in ranks], ranks_s=ranks[0]["ranks_s"],
+        one_rank_fit_s=one_s,
+        step_ms_median=[statistics.median(r["step_ms"]) for r in ranks],
+        render_s=[r["render_s"] for r in ranks],
+        peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
+        comm=ranks[0]["comm"], history=ranks[0]["history"],
+        one_rank_history=one_hist)
+    if not (loss_rel <= S1T_DP_BAR and max(rels.values()) <= S1T_DP_BAR):
+        raise AssertionError(f"(d1) two ranks against one: {out}")
+    return out
+
+
+def stage1_dp_full(sd, one_rank_render_s: float, dev) -> dict:
+    """(d2): (a)'s recipe at full width on two ranks, a global batch of
+    ``S1T_BATCH`` for ``S1T_DP_STEPS`` steps, a test pass over one batch;
+    ``one_rank_render_s`` is (a)'s render of the same samples."""
+    spec = dict(
+        config="DUST3R_LARGE_CONFIG",
+        train=dict(n=S1T_BATCH * S1T_DP_STEPS, resolution=list(S1T_RES),
+                   seed=1),
+        test=dict(n=S1T_BATCH, resolution=list(S1T_RES), seed=999),
+        train_cfg=dict(epochs=1, steps_per_epoch=S1T_DP_STEPS),
+        loop=dict(epochs=1, batch_size=S1T_BATCH, save_freq=2))
+    ranks, work = stage1_fit_parallel("full", spec, sd, dev)
+    check_ranks("d2", ranks, S1T_DP_STEPS)
+    shutil.rmtree(work)
+    return dict(
+        config=spec["config"], resolution=list(S1T_RES),
+        global_batch=S1T_BATCH, rows_a_rank=S1T_BATCH // 2,
+        steps=S1T_DP_STEPS, trainable_params=ranks[0]["trainable_params"],
+        step_ms=[r["step_ms"] for r in ranks],
+        step_ms_median_2_3=[statistics.median(r["step_ms"][1:])
+                            for r in ranks],
+        stage1_grads_bytes_per_step=ranks[0]["grads_bytes_per_step"],
+        stage1_grads_calls_per_step=ranks[0]["grads_calls_per_step"],
+        comm=[r["comm"] for r in ranks],
+        render_s=[r["render_s"] for r in ranks],
+        rendered=[r["rendered"] for r in ranks],
+        one_rank_render_s=one_rank_render_s,
+        peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
+        fit_s=[r["fit_s"] for r in ranks],
+        setup_s=[r["setup_s"] for r in ranks], ranks_s=ranks[0]["ranks_s"],
+        weights_write_s=ranks[0]["weights_write_s"],
+        rank0_wrote=ranks[0]["wrote"], losses=ranks[0]["losses"],
+        history=ranks[0]["history"])
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| (numpy or tensors)."""
+    import numpy as np
+    got, want = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+                 for x in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def learnt_flows(model, dev) -> dict:
+    """(e): ``run_scene`` with RAFT flows on (b)'s learnt TINY model, every
+    setting at its default, on the card: a static share strictly between
+    0 and 1, finite outputs, a falling alignment loss. Each stage held
+    against the port on the CPU on the same inputs: the pair predictions
+    within ``LEARNT_BAR`` and the flows within ``FLOW_CPU_BAR`` x max|CPU|;
+    the alignment's objective at its start (the host initialization, the
+    flow term on from iteration 0), on the card's predictions and flows,
+    within ``LEARNT_BAR`` relative, its masks bitwise. The alignment's
+    state after its Adam steps is not held: the start puts many L1
+    residuals at zero, where the gradient's direction is rounding, and
+    Adam's normalized step moves those depths by lr either way (after 5
+    steps an H100 and the CPU part by 1.1e-2 x max|CPU| in depths;
+    PERF.md section 6)."""
+    import copy
+    import math
+
+    import numpy as np
+    from das3r_tpu_torch.data import synthetic
+    from das3r_tpu_torch.predictor import alignment, flow, inference, raft
+    from das3r_tpu_torch.predictor import runner
+
+    gen, frames = WORK / "learnt_gen", WORK / "learnt_frames"
+    synthetic.make_synthetic_stage1_dir(str(gen), n_frames=LEARNT_FRAMES,
+                                        height=48, width=64, seed=SEED + 15)
+    frames.mkdir()
+    for p in sorted(gen.glob("frame_*.png")):
+        shutil.copy(p, frames)
+    flow_net = stage1_flow_net(raft.RAFT, FLOW_SEED)
+    cpu_net = copy.deepcopy(flow_net)
+    stats = {}
+    with _Timed(inference, "run_pairs") as inf, \
+            _Timed(flow, "compute_edge_flows") as fl, \
+            _Timed(alignment, "align") as al:
+        t0 = time.perf_counter()
+        got = runner.run_scene(
+            str(frames), str(WORK / "learnt_out"), model, size=LEARNT_SIZE,
+            raft_params=flow_net, device=dev, stats=stats,
+            verbose=lambda *_: None).scene
+        card_s = time.perf_counter() - t0
+    (_, images01, edges), _ = inf.args[0]
+    preds, flows = inf.results[0], fl.results[0]
+    (*inputs, cfg), _ = al.args[0]
+    # the objective at the start, flow term on: one iteration's loss
+    start_cfg = dataclasses.replace(cfg, niter=1, flow_loss_start_ratio=0.0)
+    start = {}
+    for on, fs in ((dev, flows), ("cpu", tuple(f.cpu() for f in flows))):
+        start[on] = alignment.align(*inputs, start_cfg, flows=fs,
+                                    device=on)
+    t0 = time.perf_counter()
+    cpu_preds = inference.run_pairs(copy.deepcopy(model).to("cpu"),
+                                    images01, edges)
+    cpu_flows = flow.compute_edge_flows(cpu_net, images01, edges,
+                                        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    static = float((~got.dynamic_masks).mean())
+    pred_rel = {k: rel_err(getattr(preds, k), getattr(cpu_preds, k))
+                for k in ("pred_i", "pred_j", "conf_i", "conf_j", "mask_i")}
+    flow_rel = [rel_err(a, b) for a, b in zip(flows[:2], cpu_flows[:2])]
+    g, w = start[dev], start["cpu"]
+    loss_rel = abs(g.final_loss - w.final_loss) / abs(w.final_loss)
+    al_stats = stats["align"]
+    out = dict(frames=LEARNT_FRAMES, size=LEARNT_SIZE, niter=cfg.niter,
+               edges=len(edges), shape=list(got.depths.shape),
+               static_share=static,
+               masks_equal=bool((g.dynamic_masks == w.dynamic_masks).all()
+                                and (got.dynamic_masks
+                                     == g.dynamic_masks).all()),
+               first_loss=al_stats["first_loss"],
+               last_loss=al_stats["last_loss"],
+               preds_card_vs_cpu=pred_rel, flows_card_vs_cpu=flow_rel,
+               start_loss=[g.final_loss, w.final_loss],
+               start_loss_rel=loss_rel, bar=LEARNT_BAR,
+               flow_bar=FLOW_CPU_BAR, seconds=card_s,
+               flow_s=stats["flow_s"], align_s=stats["align_s"],
+               cpu_seconds=cpu_s)
+    finite = all(np.isfinite(getattr(got, k)).all()
+                 for k in ("depths", "poses_c2w", "focals"))
+    if not (0.0 < static < 1.0 and out["masks_equal"] and finite
+            and math.isfinite(al_stats["last_loss"])
+            and al_stats["last_loss"] < al_stats["first_loss"]
+            and max(pred_rel.values()) <= LEARNT_BAR
+            and max(flow_rel) <= FLOW_CPU_BAR and loss_rel <= LEARNT_BAR):
+        raise AssertionError(f"stage 1 with flows on learnt weights: {out}")
+    return out
+
+
 def phase_stage1_train(sd, dev):
     """Stage-1 training (``predictor/train_loop.fit``) on the card: (a) the
     DAS3R recipe at DUST3R_LARGE_CONFIG, (b) TINY from scratch at JAX's
@@ -3243,6 +3659,9 @@ def phase_stage1_train(sd, dev):
         test_ds = _Rendered(WallTwoViewDataset(n=S1T_BATCH,
                                                resolution=S1T_RES, seed=999))
         render_s = time.perf_counter() - t0
+        # the samples (d2) renders: its train set's first, and the test set
+        dp_render_s = (sum(train_ds.seconds[:S1T_BATCH * S1T_DP_STEPS])
+                       + sum(test_ds.seconds))
         say("(a) data rendered", render_s)
         tcfg = training.Stage1TrainConfig(epochs=S1T_EPOCHS,
                                           steps_per_epoch=S1T_STEPS)
@@ -3418,14 +3837,28 @@ def phase_stage1_train(sd, dev):
             raise AssertionError(f"pose evaluation: {summary}")
         pose = dict(frames=POSE_FRAMES, height=HEIGHT, width=WIDTH,
                     niter=POSE_ITERS, seconds=pose_s, **summary)
-        return full, tiny, pose
+        say("(c) pose evaluation done")
+        # (e) stage 1 with flows on (b)'s learnt weights
+        flows = learnt_flows(model, dev)
+        del model
+        torch.cuda.empty_cache()
+        say("(e) flows on learnt weights done")
+        # (d) the data-parallel fit on two ranks sharing the card
+        t0 = time.perf_counter()
+        dp = dict(d1=stage1_dp_tiny(dev))
+        say("(d1) done", time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        dp["d2"] = stage1_dp_full(sd, dp_render_s, dev)
+        dp["seconds"] = time.perf_counter() - t0
+        say("(d2) done", dp["seconds"])
+        return full, tiny, pose, flows, dp
 
-    (full, tiny, pose), launches = run_counted(main_path)
+    (full, tiny, pose, flows, dp), launches = run_counted(main_path)
     if any(launches.values()):
         raise AssertionError(f"stage-1 training launched a raster kernel: "
                              f"{launches}")
     emit("stage1_train", full_width=full, tiny=tiny, pose_eval=pose,
-         launches=launches)
+         learnt_flows=flows, data_parallel=dp, launches=launches)
     return launches
 
 

@@ -3,8 +3,10 @@
 mesh.py``).
 
 Only ``all_reduce`` is issued. A gather is an all-reduce of a zero-filled
-buffer that holds this rank's rows: adding zeros is exact, so the
-gathered tensor is bitwise the concatenation of the ranks' blocks, and
+buffer that holds this rank's rows, and so is ``broadcast_object`` (one
+rank's pickled bytes, the others' zeros) and ``barrier`` (one zero):
+adding zeros is exact, so the gathered tensor is bitwise the
+concatenation of the ranks' blocks, and
 ``all_reduce`` is among the collectives that every backend offers on both
 CPU and CUDA tensors (gloo offers only it and ``broadcast`` on CUDA
 tensors). A group of None, or of one rank, is no communication at all:
@@ -26,6 +28,8 @@ Two autograd forms carry the sharded step's gradients:
   of that part only.
 """
 from __future__ import annotations
+
+import pickle
 
 import torch
 import torch.distributed as dist
@@ -61,6 +65,34 @@ def gather_blocks(x: torch.Tensor, group, tag: str = "") -> torch.Tensor:
     buf = x.new_zeros((n * m,) + tuple(x.shape[1:]))
     buf[index(group) * m:(index(group) + 1) * m] = x
     return all_reduce(buf, group, family="all-gather", tag=tag)
+
+
+def broadcast_object(obj, group, device, tag: str = ""):
+    """Group rank 0's ``obj`` (any picklable object; the others pass
+    anything) on every rank of ``group``: its pickled bytes, one per int32,
+    all-reduced with the other ranks' zeros on ``device`` (the group's
+    device: a CUDA one for NCCL). Two all-reduces, the length and the
+    bytes, counted under the family "broadcast"."""
+    if size(group) == 1:
+        return obj
+    mine = index(group) == 0
+    data = pickle.dumps(obj) if mine else b""
+    n = torch.tensor([len(data)], dtype=torch.int64, device=device)
+    all_reduce(n, group, family="broadcast", tag=tag)
+    buf = torch.zeros(int(n), dtype=torch.int32, device=device)
+    if mine:
+        buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+    all_reduce(buf, group, family="broadcast", tag=tag)
+    return obj if mine else pickle.loads(
+        buf.to(torch.uint8).cpu().numpy().tobytes())
+
+
+def barrier(group, device, tag: str = "") -> None:
+    """Return once every rank of ``group`` has reached the call: one
+    all-reduce of a zero on ``device``, counted under "barrier"."""
+    if size(group) > 1:      # the host waits for the result
+        all_reduce(torch.zeros(1, device=device), group, family="barrier",
+                   tag=tag).item()
 
 
 class _GatherRows(torch.autograd.Function):

@@ -295,8 +295,15 @@ class ConcatDataset:
 
 
 def batch_iterator(dataset, batch_size: int, seed: int = 0,
-                   shuffle: bool = True, drop_last: bool = True):
-    """Yield (img1 [B,3,H,W], img2, Stage1Batch) numpy batches."""
+                   shuffle: bool = True, drop_last: bool = True,
+                   rank: int = 0, ranks: int = 1):
+    """Yield (img1 [B,3,H,W], img2, Stage1Batch) numpy batches.
+
+    With ``ranks`` > 1 (the data axis of a mesh), each global batch of
+    ``batch_size`` is split as JAX's ``P("data")`` splits it: rank ``r``
+    gets rows ``[r B/R, (r+1) B/R)`` and renders only those samples. A
+    batch whose size the ranks do not divide raises, as JAX's sharding
+    does; nothing is padded."""
     order = np.arange(len(dataset))
     rng = np.random.default_rng(seed)
     if shuffle:
@@ -304,7 +311,12 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0,
     end = (len(order) // batch_size * batch_size if drop_last
            else len(order))
     for s in range(0, end, batch_size):
-        clips = [dataset[int(i)] for i in order[s:s + batch_size]]
+        rows = order[s:s + batch_size]
+        if len(rows) % ranks:
+            raise ValueError(f"a batch of {len(rows)} does not split over "
+                             f"{ranks} data ranks")
+        n = len(rows) // ranks
+        clips = [dataset[int(i)] for i in rows[rank * n:(rank + 1) * n]]
         stack = lambda attr: np.stack([getattr(c, attr) for c in clips])
         yield (stack("img1"), stack("img2"), Stage1Batch(
             gt_pts3d_1=stack("gt_pts3d_1"), gt_pts3d_2=stack("gt_pts3d_2"),

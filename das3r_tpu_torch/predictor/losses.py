@@ -22,6 +22,8 @@ import torch
 
 from das3r_tpu_torch.parallel import collectives
 from das3r_tpu_torch.utils.device import on_device
+from das3r_tpu_torch.utils.quat import se3_inverse
+from das3r_tpu_torch.utils.transforms import geotrf
 
 
 def _masked_mean(x, mask, group=None):
@@ -75,24 +77,13 @@ def bce(pred_prob, target, eps=1e-7):
     return -(target * torch.log(p) + (1 - target) * torch.log1p(-p))
 
 
-def _se3_inverse(m):
-    """Inverse of (..., 4, 4) rigid transforms without a linear solve."""
-    rt = m[..., :3, :3].transpose(-1, -2)
-    t = -(rt @ m[..., :3, 3:])
-    bottom = torch.zeros_like(m[..., 3:, :])
-    bottom[..., 3] = 1.0
-    return torch.cat([torch.cat([rt, t], -1), bottom], -2)
-
-
 def _in_cam1(batch: Stage1Batch):
     """Both views' ground-truth points in view 1's camera frame."""
-    in_cam1 = _se3_inverse(batch.camera_pose_1)
+    in_cam1 = se3_inverse(batch.camera_pose_1)
     B, H, W, _ = batch.gt_pts3d_1.shape
-    R, t = in_cam1[:, :3, :3], in_cam1[:, None, :3, 3]
 
     def trf(p):
-        return (torch.einsum("bij,bnj->bni", R, p.reshape(B, -1, 3))
-                + t).reshape(B, H, W, 3)
+        return geotrf(in_cam1, p.reshape(B, -1, 3)).reshape(B, H, W, 3)
     return trf(batch.gt_pts3d_1), trf(batch.gt_pts3d_2)
 
 

@@ -24,9 +24,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from das3r_tpu_torch.models.croco import convert
+from das3r_tpu_torch.parallel import collectives
 from das3r_tpu_torch.predictor import training
 from das3r_tpu_torch.predictor.datasets import batch_iterator
 from das3r_tpu_torch.predictor.losses import conf_regr3d_mmask_loss
@@ -111,31 +113,81 @@ def load_params_npz(path: str, params):
 
 @torch.no_grad()
 def evaluate_stats(model, dataset, batch_size, max_batches=None,
-                   device=None):
+                   device=None, mesh=None):
     """Per-dataset test stats (test_one_epoch, training.py:497-556):
     ``loss`` = mean over batches, ``loss_med`` = median; the reference
-    selects the best checkpoint on the MEDIAN (training.py:307-308)."""
+    selects the best checkpoint on the MEDIAN (training.py:307-308).
+
+    With ``mesh``, each data rank evaluates its rows of every batch and
+    each batch's loss is the global batch's (the group's masked means), so
+    every rank returns the same stats: those of the unsharded pass."""
     dev = resolve_device(device)
+    rank, ranks, group = _data_axis(mesh)
     losses = []
-    for bi, (img1, img2, batch) in enumerate(
-            batch_iterator(dataset, batch_size, seed=0, shuffle=False)):
+    for bi, (img1, img2, batch) in enumerate(batch_iterator(
+            dataset, batch_size, seed=0, shuffle=False, rank=rank,
+            ranks=ranks)):
         if max_batches and bi >= max_batches:
             break
         res1, res2 = model(torch.as_tensor(img1, device=dev),
                            torch.as_tensor(img2, device=dev))
-        losses.append(conf_regr3d_mmask_loss(batch.to(dev), res1,
-                                             res2).total)
+        losses.append(conf_regr3d_mmask_loss(batch.to(dev), res1, res2,
+                                             group=group).total)
     if not losses:
         return {"loss": float("nan"), "loss_med": float("nan")}
     arr = torch.stack(losses).cpu().numpy()
     return {"loss": float(arr.mean()), "loss_med": float(np.median(arr))}
 
 
+def evaluate(model, dataset, batch_size, max_batches=None, device=None):
+    """Mean total loss over a dataset (JAX's wrapper for older callers)."""
+    return evaluate_stats(model, dataset, batch_size, max_batches,
+                          device)["loss"]
+
+
+def _data_axis(mesh):
+    """(this rank's index, the ranks, the process group) of the mesh's
+    data axis; (0, 1, None) without a mesh."""
+    if mesh is None:
+        return 0, 1, None
+    group, ranks = mesh.group("data"), mesh.shape["data"]
+    if ranks > 1 and group is None:
+        raise ValueError("the mesh's data axis has no process group: make "
+                         "it with parallel.make_mesh over the ranks, not "
+                         "with world_size")
+    return mesh.coords["data"], ranks, group
+
+
+def _log_epoch(log_path, tb, entry: dict) -> None:
+    """One epoch's JSON line in ``log.txt`` and its TensorBoard scalars."""
+    with open(log_path, "a") as f:
+        f.write(json.dumps(entry) + "\n")
+    tblog.scalars(tb, entry["epoch"] + 1, **{
+        k.replace("test_", "test__").replace("train_", "train__").replace(
+            "pose_", "pose__"): v
+        for k, v in entry.items()
+        if isinstance(v, (int, float)) and k != "epoch"})
+
+
 def fit(model: nn.Module, train_dataset, test_datasets: dict,
         train_cfg: training.Stage1TrainConfig, loop_cfg: Stage1LoopConfig,
-        progress=print, pose_eval_fn=None, device=None):
+        mesh=None, progress=print, pose_eval_fn=None, device=None):
     """Train ``model`` in place on ``device`` (default CUDA; a RuntimeError
     without it). Returns (model, history).
+
+    ``mesh`` (``parallel.make_mesh(data=R)`` over R ranks, each running
+    ``fit`` with the same model and arguments) makes it JAX's
+    ``fit(mesh=)``: each data rank takes its rows of every global batch of
+    ``loop_cfg.batch_size`` (``batch_iterator``), the loss is the global
+    batch's and the gradients are summed over the data axis
+    (``training.make_train_step(group=)``), so the parameters and the
+    AdamW state stay bitwise equal on every rank. Global rank 0 alone
+    writes ``out_dir`` (checkpoints, ``log.txt``, TensorBoard), calls
+    ``progress`` and runs ``pose_eval_fn``, whose dict it sends to the
+    others; every rank waits
+    for each write, reads ``checkpoint-last.npz`` to resume (``out_dir``
+    must be one directory that every rank sees), and returns the same
+    history (rank 0's clock in ``time_s``).
 
     ``pose_eval_fn(model, epoch) -> dict`` is the in-train pose evaluation
     hook (reference training.py:311-331 runs ``eval_pose_estimation``
@@ -146,10 +198,25 @@ def fit(model: nn.Module, train_dataset, test_datasets: dict,
     real dataset roots are available.
     """
     dev = resolve_device(device)
+    rank, ranks, group = _data_axis(mesh)
+    if loop_cfg.batch_size % ranks:
+        raise ValueError(f"batch_size {loop_cfg.batch_size} does not split "
+                         f"over {ranks} data ranks")
+    # every rank follows global rank 0, the one writer
+    world = (dist.group.WORLD if mesh is not None and dist.is_initialized()
+             else None)
+    writer = collectives.index(world) == 0
+
+    def write(fn, *args):
+        """``fn(*args)`` on the writer; every rank returns once it is done."""
+        if writer:
+            fn(*args)
+        collectives.barrier(world, dev, tag="stage1_files")
+
     model.to(dev)
     train_p, _ = training.split_params(model, freeze=train_cfg.freeze)
     opt = training.adamw_init(train_p)
-    step_fn = training.make_train_step(model, train_cfg)
+    step_fn = training.make_train_step(model, train_cfg, group=group)
 
     start_epoch = 0
     best = float("inf")
@@ -158,14 +225,25 @@ def fit(model: nn.Module, train_dataset, test_datasets: dict,
     if os.path.exists(last_path):   # auto-resume (training.py:189-192)
         start_epoch, best, best_pose_ate = _load_ckpt(last_path, train_p,
                                                       opt)
-        progress(f"resumed from {last_path} at epoch {start_epoch}")
+        if writer:
+            progress(f"resumed from {last_path} at epoch {start_epoch}")
+    # every rank resumes from the one file, or every rank raises
+    span = collectives.all_reduce(
+        torch.tensor([start_epoch, -start_epoch], device=dev), world,
+        op=dist.ReduceOp.MAX, tag="stage1_resume")
+    if int(span[0]) != -int(span[1]):
+        raise RuntimeError(f"the ranks resume at epochs {-int(span[1])} to "
+                           f"{int(span[0])}: {loop_cfg.out_dir} is not one "
+                           f"directory that every rank sees")
 
-    os.makedirs(loop_cfg.out_dir, exist_ok=True)
     log_path = os.path.join(loop_cfg.out_dir, "log.txt")
-    # wandb-equivalent scalar stream (reference training.py:177-183,
-    # 266-269): guarded TensorBoard next to the JSON lines
-    tb = tblog.make_writer(os.path.join(loop_cfg.out_dir, "tb")
-                           if loop_cfg.tensorboard else None)
+    tb = None
+    if writer:
+        os.makedirs(loop_cfg.out_dir, exist_ok=True)
+        # wandb-equivalent scalar stream (reference training.py:177-183,
+        # 266-269): guarded TensorBoard next to the JSON lines
+        tb = tblog.make_writer(os.path.join(loop_cfg.out_dir, "tb")
+                               if loop_cfg.tensorboard else None)
     history = []
     global_step = start_epoch * max(
         1, len(train_dataset) // loop_cfg.batch_size)
@@ -175,7 +253,7 @@ def fit(model: nn.Module, train_dataset, test_datasets: dict,
         handles = []
         for img1, img2, batch in batch_iterator(
                 train_dataset, loop_cfg.batch_size,
-                seed=loop_cfg.seed + epoch):
+                seed=loop_cfg.seed + epoch, rank=rank, ranks=ranks):
             out = step_fn(train_p, opt, torch.as_tensor(img1, device=dev),
                           torch.as_tensor(img2, device=dev), batch.to(dev),
                           global_step)
@@ -188,13 +266,17 @@ def fit(model: nn.Module, train_dataset, test_datasets: dict,
                  "train_lr": float(training.lr_at(float(global_step),
                                                   train_cfg)),
                  "time_s": round(time.perf_counter() - t0, 2)}
+        # the losses are the global batches' on every rank; the clock is
+        # rank 0's
+        entry = collectives.broadcast_object(entry, world, dev,
+                                             tag="stage1_log")
 
         ep1 = epoch + 1
         if test_datasets and ep1 % loop_cfg.eval_freq == 0:
             new_best = False
             for name, ds in test_datasets.items():
                 stats = evaluate_stats(model, ds, loop_cfg.batch_size,
-                                       max_batches=8, device=dev)
+                                       max_batches=8, device=dev, mesh=mesh)
                 entry[f"test_{name}_loss"] = stats["loss"]
                 entry[f"test_{name}_loss_med"] = stats["loss_med"]
                 # best over ALL test sets, on the MEDIAN loss
@@ -203,42 +285,41 @@ def fit(model: nn.Module, train_dataset, test_datasets: dict,
                     best = stats["loss_med"]
                     new_best = True
             if new_best:
-                _save_ckpt(os.path.join(loop_cfg.out_dir,
-                                        "checkpoint-best.npz"),
-                           train_p, opt, ep1, best, best_pose_ate)
+                write(_save_ckpt, os.path.join(loop_cfg.out_dir,
+                                               "checkpoint-best.npz"),
+                      train_p, opt, ep1, best, best_pose_ate)
 
         if (pose_eval_fn is not None and loop_cfg.pose_eval_freq > 0
                 and ep1 % loop_cfg.pose_eval_freq == 0):
-            # in-train pose eval (training.py:311-331)
-            pose_stats = pose_eval_fn(model, ep1)
+            # in-train pose eval (training.py:311-331), on rank 0 alone
+            pose_stats = collectives.broadcast_object(
+                pose_eval_fn(model, ep1) if writer else None, world, dev,
+                tag="stage1_pose")
             ate = pose_stats.get("mean_ate")
             entry.update({f"pose_{k}": v for k, v in pose_stats.items()})
             if ate is not None and ate < best_pose_ate:
                 best_pose_ate = ate
                 if loop_cfg.save_best_pose:
-                    _save_ckpt(os.path.join(loop_cfg.out_dir,
-                                            "checkpoint-best_pose.npz"),
-                               train_p, opt, ep1, best, best_pose_ate)
+                    write(_save_ckpt, os.path.join(
+                        loop_cfg.out_dir, "checkpoint-best_pose.npz"),
+                        train_p, opt, ep1, best, best_pose_ate)
 
         if loop_cfg.keep_freq and ep1 % loop_cfg.keep_freq == 0:
             # numbered keep-checkpoints (training.py:346-348)
-            _save_ckpt(os.path.join(loop_cfg.out_dir,
-                                    f"checkpoint-{ep1}.npz"),
-                       train_p, opt, ep1, best, best_pose_ate)
+            write(_save_ckpt, os.path.join(loop_cfg.out_dir,
+                                           f"checkpoint-{ep1}.npz"),
+                  train_p, opt, ep1, best, best_pose_ate)
 
         if ep1 % loop_cfg.save_freq == 0:
-            _save_ckpt(last_path, train_p, opt, ep1, best, best_pose_ate)
+            write(_save_ckpt, last_path, train_p, opt, ep1, best,
+                  best_pose_ate)
 
-        with open(log_path, "a") as f:
-            f.write(json.dumps(entry) + "\n")
-        tblog.scalars(tb, ep1, **{k.replace("test_", "test__").replace(
-            "train_", "train__").replace("pose_", "pose__"): v
-            for k, v in entry.items()
-            if isinstance(v, (int, float)) and k != "epoch"})
-        progress(f"epoch {epoch}: {entry}")
+        write(_log_epoch, log_path, tb, entry)
+        if writer:
+            progress(f"epoch {epoch}: {entry}")
         history.append(entry)
 
-    _save_ckpt(os.path.join(loop_cfg.out_dir, "checkpoint-final.npz"),
-               train_p, opt, loop_cfg.epochs, best, best_pose_ate)
+    write(_save_ckpt, os.path.join(loop_cfg.out_dir, "checkpoint-final.npz"),
+          train_p, opt, loop_cfg.epochs, best, best_pose_ate)
     tblog.close(tb)
     return model, history

@@ -23,6 +23,10 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor,
     return d.mean() if reduce else d
 
 
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
 def mse(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Per-image MSE over flattened pixels, [B, 1]
     (utils/image_utils.py:14-16)."""
@@ -70,3 +74,8 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     if squeeze:
         ssim_map = ssim_map[0]
     return ssim_map.mean() if size_average else ssim_map
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """logit (utils/general_utils.py:18)."""
+    return torch.log(x / (1 - x))

@@ -43,6 +43,24 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by quaternion(s) q (..., 4)."""
+    return torch.einsum("...ij,...j->...i", quat_to_rotmat(q), v)
+
+
+def se3_inverse(m: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 4, 4) rigid transform(s) without a linear solve."""
+    rt = m[..., :3, :3].transpose(-1, -2)
+    t = -(rt @ m[..., :3, 3:])
+    bottom = torch.zeros_like(m[..., 3:, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([torch.cat([rt, t], -1), bottom], -2)
+
+
 def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
     """sqrt(max(0, x)) with a zero subgradient at 0 (double where)."""
     safe = torch.where(x > 0, x, torch.ones_like(x))

@@ -15,6 +15,8 @@ from das3r_tpu_torch.ops.splat import entry_blend as tblend
 from das3r_tpu_torch.ops.splat import rasterize
 
 from test_splat import make_scene
+from test_torch_cuda import (cancelling_bar, cancelling_case,
+                             f64_grad_and_terms)
 from test_torch_blend import jax_stream_and_table, torch_stream
 from test_torch_preprocess import raster_kwargs, settings_pair, to_jax
 
@@ -200,3 +202,20 @@ def test_permute_rows_backward_is_the_inverse_gather():
     (gx,) = torch.autograd.grad(permute_rows(x, order), x, g)
     want = torch.zeros_like(g).index_add_(0, order, g)
     torch.testing.assert_close(gx, want, rtol=0, atol=0)
+
+
+def test_plain_backward_meets_the_cancelling_bar():
+    """The plain backward (the version kernel C is held against) on
+    ``tests/test_torch_cuda.py``'s "cancelling" instance: row 0's opacity
+    gradient sums 30 tiles' terms that cancel ~25-fold, so it is beyond
+    the JAX bar (2e-5 x max|g|) of the float64 value, and within the bar
+    scaled by the terms' magnitudes."""
+    s, args, g_cpre, g_tfinal = cancelling_case()
+    fwd = tblend.blend_forward_plain(*args, s)
+    got = tblend.blend_backward_plain(*args, s, fwd.tfinal, fwd.tin, g_cpre,
+                                      g_tfinal).g_table
+    g64, mag = f64_grad_and_terms(s, args, g_cpre, g_tfinal)
+    assert float(mag[0, 8]) > 20 * abs(float(g64[0, 8]))
+    worst = cancelling_bar(got, g64, mag)
+    print(worst)
+    assert worst["opacity"]["beyond_jax_bar"] >= 1, "no longer cancels"

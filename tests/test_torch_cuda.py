@@ -90,7 +90,10 @@ def random_stream(rng, settings, counts, n_rows, saturate):
 # backward's table-row atomics collide within and across blocks;
 # "boundaries": random splats on lists of a batch's length and one either
 # side of it, for batches of 64, 128 and 256 entries, and of two to six
-# 128-entry batches (kernel B stages each 128-entry batch in place).
+# 128-entry batches (kernel B stages each 128-entry batch in place);
+# "cancelling": "shared_row" re-drawn on the "boundaries" lengths, where
+# row 0's opacity gradient sums tile terms that cancel 45-fold, so it has a
+# bar of its own (``cancelling_bar``).
 BLEND_CASES = ["sparse", "saturate", "gap", "shared_row", "boundaries"]
 FORWARD_CASES = ["sparse", "saturate", "boundaries"]
 
@@ -123,7 +126,7 @@ def blend_case(variant):
     s = RasterSettings(image_height=72, image_width=88)
     counts = rng.integers(0, 700, s.n_tiles)
     counts[:6] = [0, 1, 255, 256, 257, 1500]
-    if variant == "boundaries":
+    if variant in ("boundaries", "cancelling"):
         counts[:20] = [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 383,
                        384, 385, 511, 512, 513, 767, 768, 1500]
     args = random_stream(rng, s, counts, 3000, saturate)
@@ -131,7 +134,7 @@ def blend_case(variant):
     if variant == "gap":
         table[0, :2] = -1000.0
         rank[int(astart[5]) + 600:int(astart[5]) + 700] = 0
-    elif variant == "shared_row":
+    elif variant in ("shared_row", "cancelling"):
         table[0] = torch.tensor([44.0, 36.0, 1 / 1600, 0.0, 1 / 1600,
                                  0.3, 0.6, 0.9, 0.05])
         for a, c in zip(astart.tolist(), count.tolist()):
@@ -235,6 +238,87 @@ def test_blend_backward_kernel_matches_plain(cuda, variant):
         assert ref > 0, name
         torch.testing.assert_close(got[:, cols], want[:, cols],
                                    atol=GRAD_TOL * ref, rtol=0, msg=name)
+
+
+# The "cancelling" instance's bar. Its tile terms cancel, so the float32
+# sums of both versions are off the float64 value by a share of the terms'
+# magnitudes, not of the result: per element, |g - g64| <= CANCEL_TOL x
+# sum_t |term_t|, the float64 sum of the magnitudes of the tile terms (each
+# the plain backward of one tile's list), or the JAX bar GRAD_TOL x max|g64|
+# of the column group, whichever is larger (a tile's term is itself a sum
+# over its pixels, whose cancellation the tile terms do not show; it is
+# small against the group's largest value). A float32 sum of 30 tile terms
+# is within 30 x 6e-8 of their magnitudes; CANCEL_TOL leaves ~5x for the
+# terms' own rounding.
+CANCEL_TOL = 1e-5
+CANCEL_SEED = 14        # the cotangents (shared_row's)
+
+
+def cancelling_case():
+    """(settings, stream args, g_cpre, g_tfinal) of the "cancelling"
+    instance."""
+    s, args = blend_case("cancelling")
+    rng = np.random.default_rng(CANCEL_SEED)
+    P = s.tile * s.tile
+    g_cpre = torch.as_tensor(rng.normal(size=(s.n_tiles, 3, P)).astype(
+        np.float32))
+    g_tfinal = torch.as_tensor(rng.normal(size=(s.n_tiles, 1, P)).astype(
+        np.float32))
+    return s, args, g_cpre, g_tfinal
+
+
+def f64_grad_and_terms(s, args, g_cpre, g_tfinal):
+    """(g64, sum_t |term_t|) [M, 9] float64: the plain forward and
+    backward run in float64, once per tile's list (the other tiles' counts
+    0), the terms summed and their magnitudes summed."""
+    table, rank, astart, count = args
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)     # the plain versions' buffers
+    try:
+        t64 = table.double()
+        fwd = entry_blend.blend_forward_plain(t64, rank, astart, count, s)
+        g64 = torch.zeros_like(t64)
+        mag = torch.zeros_like(t64)
+        for t in count.nonzero().squeeze(1).tolist():
+            one = torch.zeros_like(count)
+            one[t] = count[t]
+            term = entry_blend.blend_backward_plain(
+                t64, rank, astart, one, s, fwd.tfinal, fwd.tin,
+                g_cpre.double(), g_tfinal.double()).g_table
+            g64 += term
+            mag += term.abs()
+    finally:
+        torch.set_default_dtype(prev)
+    return g64, mag
+
+
+def cancelling_bar(got, g64, mag) -> dict:
+    """Hold ``got`` to the "cancelling" bar (above); per column group, the
+    worst |got - g64| against the bar, and how many elements are beyond
+    the JAX bar alone."""
+    err = (got.double() - g64).abs()
+    out = {}
+    for name, cols in GROUPS.items():
+        jax_bar = GRAD_TOL * float(g64[:, cols].abs().max())
+        bar = torch.clamp_min(CANCEL_TOL * mag[:, cols], jax_bar)
+        e = err[:, cols]
+        assert (e <= bar).all(), (name, float((e / bar).max()))
+        out[name] = dict(worst_over_bar=float((e / bar).max()),
+                         beyond_jax_bar=int((e > jax_bar).sum()))
+    return out
+
+
+def test_blend_backward_kernel_meets_the_cancelling_bar(cuda):
+    """Kernel C on the "cancelling" instance, against the float64 value
+    at the bar scaled by the terms' magnitudes (``cancelling_bar``)."""
+    s, args, g_cpre, g_tfinal = cancelling_case()
+    g64, mag = f64_grad_and_terms(s, args, g_cpre, g_tfinal)
+    dev = [a.to(cuda) for a in args]
+    _, tfinal, n_last = entry_blend.blend_forward(*dev, s, for_backward=True)
+    got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
+                                     g_cpre.to(cuda), g_tfinal.to(cuda))
+    torch.cuda.synchronize()
+    print(cancelling_bar(got.cpu(), g64, mag))
 
 
 def range_args(args, tile0, t_loc):

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from das3r_tpu.utils import image as jimage
 from das3r_tpu.utils import quat as jquat
 from das3r_tpu.utils import sh as jsh
 from das3r_tpu.utils import transforms as jtf
+from das3r_tpu_torch.utils import image as timage
 from das3r_tpu_torch.utils import quat as tquat
 from das3r_tpu_torch.utils import sh as tsh
 from das3r_tpu_torch.utils import transforms as ttf
@@ -101,6 +103,64 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def _rigid(rng, n):
+    """[n, 4, 4] random rigid transforms (float32)."""
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    m = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    m[:, :3, :3] = np.asarray(jquat.quat_to_rotmat(jnp.asarray(q)))
+    m[:, :3, 3] = rng.normal(size=(n, 3))
+    return m
+
+
+def _named_cases():
+    """name -> (JAX call, port call) on the same numpy inputs."""
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(64, 4)).astype(np.float32)
+    v = rng.normal(size=(64, 3)).astype(np.float32)
+    m = _rigid(rng, 8)
+    pts = rng.normal(size=(8, 50, 3)).astype(np.float32)
+    p = rng.uniform(0.01, 0.99, (4, 16)).astype(np.float32)
+    a, b = rng.normal(size=(2, 3, 32, 32)).astype(np.float32)
+    R = np.asarray(jquat.quat_to_rotmat(jnp.asarray(q[0])), np.float64)
+    t, tr = rng.normal(size=(2, 3))
+    J, T = jnp.asarray, torch.as_tensor
+    return {
+        "quat_conj": (lambda: jquat.quat_conj(J(q)),
+                      lambda: tquat.quat_conj(T(q))),
+        "quat_rotate": (lambda: jquat.quat_rotate(J(q), J(v)),
+                        lambda: tquat.quat_rotate(T(q), T(v))),
+        "se3_inverse": (lambda: jquat.se3_inverse(J(m)),
+                        lambda: tquat.se3_inverse(T(m))),
+        "geotrf": (lambda: jtf.geotrf(J(m), J(pts)),
+                   lambda: ttf.geotrf(T(m), T(pts))),
+        "geotrf_3x3_ncol2": (lambda: jtf.geotrf(J(m[:, :3, :3]), J(pts), 2),
+                             lambda: ttf.geotrf(T(m[:, :3, :3]), T(pts), 2)),
+        "homogenize": (lambda: jtf.homogenize(J(pts)),
+                       lambda: ttf.homogenize(T(pts))),
+        "projection_matrix": (
+            lambda: jtf.projection_matrix(0.01, 100.0, 1.1, 0.7),
+            lambda: ttf.projection_matrix(0.01, 100.0, 1.1, 0.7)),
+        "world_to_view": (lambda: jtf.world_to_view(R, t, tr, 1.5),
+                          lambda: ttf.world_to_view(R, t, tr, 1.5)),
+        "inverse_sigmoid": (lambda: jimage.inverse_sigmoid(J(p)),
+                            lambda: timage.inverse_sigmoid(T(p))),
+        "l2_loss": (lambda: jimage.l2_loss(J(a), J(b)),
+                    lambda: timage.l2_loss(T(a), T(b))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_named_cases()))
+def test_public_helpers_match_jax(name):
+    """The JAX utils' public helpers that the port had inlined, under
+    their JAX names in the port's module of the same name."""
+    jax_call, port_call = _named_cases()[name]
+    want = np.asarray(jax_call())
+    got = port_call()
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=ATOL)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

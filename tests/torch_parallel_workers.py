@@ -1,5 +1,6 @@
 """The ranks of ``tests/test_torch_parallel.py`` (and the stage-1 step of
-``tests/test_torch_stage1_training.py``). Each runs in a process of
+``tests/test_torch_stage1_training.py`` and the stage-1 ``fit`` of
+``tests/test_torch_stage1_fit_parallel.py``). Each runs in a process of
 its own, spawned by the test, on the CPU, joined to a gloo group through a
 ``file://`` store; it reads the scene that the test wrote (``scene.npz``,
 ``scene.json``) and writes its results beside it. The module imports
@@ -7,6 +8,7 @@ neither JAX nor the JAX package, so a rank starts with PyTorch alone; the
 test also runs ``run_step`` itself, with the unsharded mesh, as the
 reference."""
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -22,10 +24,11 @@ from das3r_tpu_torch.models.croco.testkit import (TINY,
 from das3r_tpu_torch.ops.splat import RasterSettings
 from das3r_tpu_torch.parallel import comm_stats, multihost, sharded
 from das3r_tpu_torch.parallel.mesh import make_mesh
-from das3r_tpu_torch.predictor import training
+from das3r_tpu_torch.predictor import datasets, train_loop, training
 from das3r_tpu_torch.predictor.losses import Stage1Batch
 from das3r_tpu_torch.train import step as step_mod
 from das3r_tpu_torch.train.config import OptimizationConfig
+from chip_smoke import Stage1FitProbe
 
 
 def load_scene(work: Path):
@@ -138,9 +141,52 @@ def task_stage1_step(work: Path) -> dict:
                         for k, p in train.items()})
 
 
+@functools.lru_cache(maxsize=1)
+def tiny_weights(seed: int) -> dict:
+    return random_torch_state_dict(TINY, np.random.default_rng(seed))
+
+
+def stage1_fit_args(spec: dict, seed: int):
+    """The TINY model of ``seed`` and ``fit``'s other arguments, from the
+    test's ``stage1_fit.json``."""
+    model = AsymmetricCroCo3D(TINY)
+    convert.load_reference_state_dict(model, tiny_weights(seed))
+    train = datasets.SyntheticTwoViewDataset(**spec["train"])
+    test = datasets.SyntheticTwoViewDataset(**spec["test"])
+    return model, train, {"syn": test}, training.Stage1TrainConfig(
+        **spec["cfg"])
+
+
+def task_stage1_fit(work: Path) -> dict:
+    """``train_loop.fit`` at (data=2), from the spec that the test wrote
+    (``stage1_fit.json``): a fresh run into ``two/`` and one that resumes
+    the one-rank run's checkpoint in ``resume/``, then a batch the ranks
+    do not divide. Returns each run's history, a hash of its parameters
+    and AdamW state, and the files each rank wrote; two ranks."""
+    spec = json.loads((work / "stage1_fit.json").read_text())
+    mesh = make_mesh(data=2)
+    out = dict(files={})
+    for run in ("two", "resume"):
+        model, train, tests, cfg = stage1_fit_args(spec, spec["seed"])
+        with Stage1FitProbe() as probe:
+            _, hist = train_loop.fit(
+                model, train, tests, cfg, train_loop.Stage1LoopConfig(
+                    out_dir=str(work / run), **spec["loop"]),
+                mesh=mesh, progress=lambda *_: None, device="cpu")
+        out[run] = dict(history=hist, digest=probe.digest())
+        out["files"][run] = dict(probe.wrote)
+    try:
+        train_loop.fit(model, train, tests, cfg, train_loop.Stage1LoopConfig(
+            out_dir=str(work / "odd"), **{**spec["loop"], "batch_size": 3}),
+            mesh=mesh, device="cpu")
+    except ValueError as e:
+        out["odd_batch"] = str(e)
+    return out
+
+
 TASKS = {"render_and_steps": task_render_and_steps, "comm": task_comm,
          "jax_mesh": task_jax_mesh, "window_tile": task_window_tile,
-         "stage1_step": task_stage1_step}
+         "stage1_step": task_stage1_step, "stage1_fit": task_stage1_fit}
 
 
 def run(rank: int, world: int, work: str, task: str) -> None:
