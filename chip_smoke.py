@@ -161,9 +161,10 @@ failure:
    the loop's ms per iteration, its first and last loss, encode ms per
    frame and decode ms per pair (CUDA events, batches of 8) with a
    float32 and a bfloat16 trunk, a profile of 10 alignment iterations and
-   of one decode batch, and the runner's first decode batch (8 pairs,
-   ``encode_frames`` then ``decode_pairs`` on gathered tokens) on the card
-   against the same functions in float32 on the CPU: each float32 map
+   of one decode batch, and the first 2 pairs of the runner's first
+   decode batch (``encode_frames`` then ``decode_pairs`` on gathered
+   tokens) on the card against the same functions in float32 on the CPU:
+   each float32 map
    within 1e-4 x max|CPU|, the bfloat16 trunk's within the JAX package's
    bf16 bars (dynamic mask mean abs < 0.05, pts3d median relative < 0.1).
    The precision is the entry points' own (``utils/device.py::
@@ -203,7 +204,7 @@ failure:
    its start, flow term on, within 1e-4 relative, its masks bitwise).
    (d) ``fit(mesh=make_mesh(data=2))`` on two gloo ranks sharing the
    card (``stage1_fit_rank``; not a scaling number): (d1) TINY on (b)'s
-   data and recipe for 2 epochs (Adam eps 1e-2) against the one-rank
+   data and recipe for 1 epoch (Adam eps 1e-2) against the one-rank
    ``fit`` on the card: the history's losses within 1e-4 relative, the
    mask heads within 1e-4 x max|one rank|, both ranks' parameters and
    AdamW state bitwise equal, rank 1 writing no file; (d2) (a)'s recipe
@@ -211,13 +212,29 @@ failure:
    step ms, the ``stage1_grads`` all-reduce's bytes and calls a step,
    each rank's render seconds against the one-rank render of the same
    samples, and each rank's peak memory.
+20. quality: ``scripts/torch_quality_e2e.py``'s ``main`` on ``cuda``, the
+   end-to-end path of synthetic stage-1 artifacts or the stage-1
+   predictor, the rearrange bridge and the stage-2 trainer with the
+   (i+5)%10 split, the PSNR-gated camera Adam and the test-pose protocol.
+   The predictor branch at ``QUALITY_r05_predictor.json``'s recipe (12
+   frames at 96x128, 2000 iterations) on the TINY weights (b) trained:
+   stage-1 mask IoU >= 0.7, masked test PSNR >= 30 dB. The gt branch at
+   ``QUALITY_r05.json``'s size (16 frames at 144x192, pose noise 0.02 of
+   seed 11, PSNR gate 26) for 3,200 iterations: ``ate_init`` JAX's
+   0.02549, ``ate_final`` no higher, PSNR >= 30 dB. Each: every loss
+   finite, D and F launched by the probe, A, B and C once a training
+   step, B and C once a test-pose step; prints the record beside JAX's,
+   the seconds, the ms an iteration and the launches by stage. The two
+   branches run side by side, each in a process of its own.
 
 Then the ``kernels`` line (A, B, C, B-bf16 and C-bf16 at the trainer
 scene with their random-scene numbers under ``random_scene``; B, C, D and
 E with their tile-range numbers under ``tile_range``; D, E, F at the
 trainer scene; launches by path, the viewer's, stage 1's, the pipeline's,
-the bf16 steps', the sharded steps' of both paths and stage-1
-training's included), the ``nvidia-smi`` line, and last the device line. Everything it
+the bf16 steps', the sharded steps' of both paths, stage-1
+training's and the quality runs' included), the ``nvidia-smi`` line, and
+last the device line. Each phase's line carries ``at_s``, the seconds
+since the script started. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
 libraries stay cached in ``build/torch_ext/``). The package is imported
 from this script's own checkout, so the script fails, having printed
@@ -275,6 +292,8 @@ STAGE1_EDGES = 110           # swinstride-5-noncyclic over 16, symmetrized
 # x max|CPU| per map: one pair of DUST3R_LARGE_CONFIG on the card against
 # the same model on the CPU, TF32 off
 STAGE1_CPU_BAR = 1e-4
+STAGE1_CPU_PAIRS = 2         # of the runner's first decode batch, held
+                             # against the CPU (each takes seconds there)
 STAGE1_BF16_MASK_MEAN = 0.05      # the JAX package's bf16 bars
 STAGE1_BF16_PTS_MEDIAN_REL = 0.1
 PIPELINE_FRAMES = 8
@@ -318,7 +337,7 @@ S1T_SMOOTH_EPS = 1e-2
 POSE_FRAMES = 8
 POSE_ITERS = 50
 # (d) fit(mesh=make_mesh(data=2)) on two gloo ranks sharing the card
-S1T_DP_EPOCHS = 2            # (d1): TINY, (b)'s data and recipe
+S1T_DP_EPOCHS = 1            # (d1): TINY, (b)'s data and recipe
 S1T_DP_BAR = 1e-4            # losses rel., mask heads x max|one rank|
 S1T_DP_STEPS = 3             # (d2): full width, global batch S1T_BATCH
 S1T_DP_TIMEOUT = 420         # s, both ranks, start-up included
@@ -326,6 +345,19 @@ S1T_DP_TIMEOUT = 420         # s, both ranks, start-up included
 LEARNT_FRAMES = 6            # at 48x64, run at size 96 (64x96 frames:
 LEARNT_SIZE = 96             # RAFT's 1/8 maps of 8 rows)
 LEARNT_BAR = 1e-4            # x max|CPU|: the runner's end-to-end bar
+# the quality phase: scripts/torch_quality_e2e.py at the recipes of the
+# JAX package's records, QUALITY_r05_predictor.json (on (b)'s weights) and
+# QUALITY_r05.json; the gt branch at 3,200 of the record's 4,000 iterations
+# (the script's time limit), past the SH-degree bump at 3000 and ending in
+# the test-pose protocol
+QUALITY_PREDICTOR = dict(frames=12, height=96, width=128, iters=2000)
+QUALITY_GT = dict(frames=16, height=144, width=192, iters=3200,
+                  pose_noise=0.02, noise_seed=11, psnr_threshold=26.0)
+JAX_QUALITY = {"predictor": dict(psnr=48.564, stage1_mask_iou=0.7724,
+                                 stage1_ate=0.0713),
+               "gt": dict(psnr=37.854, ate_init=0.02549, ate_final=0.02489)}
+QUALITY_PSNR_BAR = 30.0      # dB: the script's PSNR_BAR_DB
+QUALITY_TIMEOUT = 600        # s, each branch's process, start-up included
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -347,8 +379,14 @@ SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "device_ms",
                 "blocks_per_sm")
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``at_s``: the seconds since the script
+    started, where the phase ended."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -1171,9 +1209,13 @@ class _Timed:
     ``launches``, so that one stage of an entry point can be timed,
     counted and checked without running it twice."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, sync: bool = True):
+        """``sync=False``: no synchronize and nothing kept but the
+        launches and the count of calls (a stage called thousands of times
+        in a run that is timed as a whole)."""
+        self.module, self.name, self.sync = module, name, sync
         self.seconds, self.args, self.results = [], [], []
+        self.calls = 0
         self.launches = collections.Counter()
 
     def __enter__(self):
@@ -1185,13 +1227,16 @@ class _Timed:
             before = {k: f.launches for k, f in counted.items()}
             t0 = time.perf_counter()
             out = orig(*args, **kw)
+            self.calls += 1
+            self.launches.update({k: f.launches - before[k]
+                                  for k, f in counted.items()})
+            if not self.sync:
+                return out
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
             self.args.append((args, kw))
             self.results.append(out)
-            self.launches.update({k: f.launches - before[k]
-                                  for k, f in counted.items()})
             return out
         setattr(self.module, self.name, wrapped)
         return self
@@ -2945,11 +2990,13 @@ def phase_stage1(sd, dev):
                              pairs.eval_scene_graph(STAGE1_FRAMES))
     ei = torch.as_tensor([i for i, _ in edges[:8]], device=dev)
     ej = torch.as_tensor([j for _, j in edges[:8]], device=dev)
-    # the runner's first decode batch: its 8 pairs' tokens gathered from
-    # the frames they read, encoded in one batch as the runner encodes
-    used = sorted({k for e in edges[:8] for k in e})
-    li = torch.as_tensor([used.index(i) for i, _ in edges[:8]])
-    lj = torch.as_tensor([used.index(j) for _, j in edges[:8]])
+    # the runner's first decode batch, its first STAGE1_CPU_PAIRS pairs:
+    # their tokens gathered from the frames they read, encoded in one batch
+    # as the runner encodes
+    checked = edges[:STAGE1_CPU_PAIRS]
+    used = sorted({k for e in checked for k in e})
+    li = torch.as_tensor([used.index(i) for i, _ in checked])
+    lj = torch.as_tensor([used.index(j) for _, j in checked])
 
     def first_batch(m, on):
         on = torch.device(on)
@@ -3044,7 +3091,7 @@ def phase_stage1(sd, dev):
          profile_decode_8_pairs=prof_decode,
          tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                    cudnn=torch.backends.cudnn.allow_tf32),
-         card_vs_cpu_pairs=edges[:8], card_vs_cpu=errs,
+         card_vs_cpu_pairs=checked, card_vs_cpu=errs,
          card_vs_cpu_worst=worst, card_vs_cpu_bar=STAGE1_CPU_BAR,
          bf16_vs_cpu=bf16, cpu_batch_seconds=cpu_s,
          launches=launches, progress=progress)
@@ -3862,6 +3909,169 @@ def phase_stage1_train(sd, dev):
     return launches
 
 
+def quality_script():
+    """``scripts/torch_quality_e2e.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_e2e", ROOT / "scripts" / "torch_quality_e2e.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quality_launch_gate(branch: str, by_stage: dict, steps: int,
+                        tp_steps: int) -> None:
+    """The probe launched D and F, every training step A, B and C once,
+    every test-pose step B and C once."""
+    want = {"probe": {"extract_windows": None, "window_blend_forward": None},
+            "train": {k: steps for k in ("extract_chunks", "blend_forward",
+                                         "blend_backward")},
+            "test_pose": {k: tp_steps for k in ("blend_forward",
+                                                "blend_backward")}}
+    for stage, names in want.items():
+        for k, n in names.items():
+            got = by_stage[stage].get(k, 0)
+            if not got or (n is not None and got != n):
+                raise AssertionError(f"quality {branch} {stage}: {k} "
+                                     f"launched {got} times (want "
+                                     f"{n or '> 0'}): {by_stage}")
+
+
+def quality_run(branch: str, argv: list, dev) -> tuple[dict, dict]:
+    """One run of the quality script's ``main`` on ``dev``: its record,
+    the trainer's losses, and the launches of its probe, its training
+    steps, its test-pose steps and the rest (the evaluation renders)."""
+    import math
+
+    import torch
+    from das3r_tpu_torch.train import scene_setup, trainer
+    from das3r_tpu_torch.train import step as step_mod
+
+    script = quality_script()
+    cuda = torch.device(dev).type == "cuda"
+    with _Timed(scene_setup, "build_scene") as probe, \
+            _Timed(step_mod, "train_step", sync=False) as steps, \
+            _Timed(step_mod, "test_pose_step", sync=False) as tp_steps, \
+            _Timed(trainer, "train_scene") as train:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record, launches = run_counted(lambda: script.main(
+            argv + ["--device", str(dev)]))
+        seconds = time.perf_counter() - t0
+    res = train.results[0]
+    iters = int(argv[argv.index("--iters") + 1])
+    losses = res.losses
+    bad = [x for x in losses if not math.isfinite(x)]
+    if len(losses) != iters or bad:
+        raise AssertionError(f"quality {branch}: {len(losses)} losses, "
+                             f"non-finite: {bad[:4]}")
+    by_stage = {"probe": dict(probe.launches), "train": dict(steps.launches),
+                "test_pose": dict(tp_steps.launches)}
+    by_stage["eval"] = {k: launches[k] - sum(by_stage[s].get(k, 0)
+                                             for s in by_stage)
+                        for k in launches}
+    quality_launch_gate(branch, by_stage, steps.calls, tp_steps.calls)
+    st = res.final_settings
+    run = dict(
+        record=record, seconds=seconds, train_steps=steps.calls,
+        test_pose_steps=tp_steps.calls,
+        ms_per_iter=train.seconds[0] * 1e3 / iters,
+        build_scene_seconds=probe.seconds[0],
+        train_scene_seconds=train.seconds[0], first_loss=losses[0],
+        last_loss=losses[-1], mean_loss_last_100=statistics.mean(
+            losses[-100:]),
+        gaussians=int(res.meta.alive.sum()),
+        settings=dict(max_total_entries=st.max_total_entries,
+                      max_tiles_per_gaussian=st.max_tiles_per_gaussian,
+                      heavy_rows_cap=st.heavy_rows_cap,
+                      sh_degree=st.sh_degree),
+        jax_record=JAX_QUALITY[branch], launches=launches,
+        launches_by_stage=by_stage)
+    return run, launches
+
+
+def quality_child(branch: str, out: str, dev: str, *argv: str) -> None:
+    """One quality run in a process of its own (``phase_quality``'s
+    child): ``quality_run`` on ``dev``, its result written to ``out`` as
+    JSON."""
+    run, launches = quality_run(branch, list(argv), dev)
+    Path(out).write_text(json.dumps(dict(run=run, launches=launches)))
+
+
+def phase_quality(dev):
+    """The end-to-end quality path, ``scripts/torch_quality_e2e.py``, at
+    the JAX records' recipes: the predictor branch on the TINY weights
+    ``stage1_train`` (b) trained and saved, and the gt branch. Each runs
+    in a fresh process, as a user runs the script; the two run side by
+    side on the card (their host-bound steps share it, so their seconds
+    are not the script's alone)."""
+    p, g = QUALITY_PREDICTOR, QUALITY_GT
+    argv = {
+        "predictor": [
+            "--work", str(WORK / "quality_predictor"), "--stage1",
+            "predictor", "--frames", str(p["frames"]),
+            "--height", str(p["height"]), "--width", str(p["width"]),
+            "--iters", str(p["iters"]),
+            "--stage1_ckpt", str(WORK / "tiny" / "stage1_tiny.npz")],
+        "gt": [
+            "--work", str(WORK / "quality_gt"), "--stage1", "gt",
+            "--frames", str(g["frames"]), "--height", str(g["height"]),
+            "--width", str(g["width"]), "--iters", str(g["iters"]),
+            "--pose_noise", str(g["pose_noise"]),
+            "--noise_seed", str(g["noise_seed"]),
+            "--psnr_threshold", str(g["psnr_threshold"])]}
+    t0 = time.perf_counter()
+    children = {}
+    for branch, args in argv.items():
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.quality_child("
+                f"{branch!r}, {str(WORK / f'quality_{branch}.json')!r}, "
+                f"{str(dev)!r}, *{args!r})")
+        # the trainer's progress lines go to stderr: stdout keeps the
+        # phase lines
+        children[branch] = subprocess.Popen([sys.executable, "-c", code],
+                                            cwd=ROOT, stdout=sys.stderr)
+    try:
+        for branch, child in children.items():
+            if child.wait(timeout=QUALITY_TIMEOUT) != 0:
+                raise AssertionError(f"quality {branch}: exit "
+                                     f"{child.returncode}")
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    seconds = time.perf_counter() - t0
+    runs, launches = {}, {}
+    for branch in argv:
+        got = json.loads((WORK / f"quality_{branch}.json").read_text())
+        runs[branch], launches[branch] = got["run"], got["launches"]
+        shutil.rmtree(WORK / f"quality_{branch}", ignore_errors=True)
+    pred, gt = runs["predictor"], runs["gt"]
+    detail = pred["record"]["detail"]
+    if not (pred["record"]["value"] >= QUALITY_PSNR_BAR
+            and detail["stage1_mask_iou"] >= TINY_IOU_BAR):
+        raise AssertionError(f"quality predictor: PSNR "
+                             f"{pred['record']['value']} (bar "
+                             f"{QUALITY_PSNR_BAR}), stage-1 mask IoU "
+                             f"{detail['stage1_mask_iou']} (bar "
+                             f"{TINY_IOU_BAR})")
+    detail = gt["record"]["detail"]
+    if not (gt["record"]["value"] >= QUALITY_PSNR_BAR
+            and detail["ate_init"] == JAX_QUALITY["gt"]["ate_init"]
+            and detail["ate_final"] <= detail["ate_init"]):
+        raise AssertionError(f"quality gt: PSNR {gt['record']['value']} "
+                             f"(bar {QUALITY_PSNR_BAR}), ATE "
+                             f"{detail['ate_init']} -> "
+                             f"{detail['ate_final']} (want "
+                             f"{JAX_QUALITY['gt']['ate_init']} -> no "
+                             f"higher)")
+    emit("quality", seconds=seconds, side_by_side=True, predictor=pred,
+         gt=gt)
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     sys.path.insert(0, str(ROOT))
@@ -3931,6 +4141,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         s1_train = phase_stage1_train(sd, "cuda")
         del sd
+        torch.cuda.empty_cache()
+        quality = phase_quality("cuda")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # serving runs the entry-stream forward kernels once per view and no
@@ -3954,6 +4166,9 @@ def main() -> int:
             "stage1_16_frames": stage1[k],
             f"pipeline_{PIPELINE_ITERS}_iters": pipe[k],
             "stage1_train": s1_train[k],
+            f"quality_predictor_{QUALITY_PREDICTOR['iters']}_iters":
+                quality["predictor"][k],
+            f"quality_gt_{QUALITY_GT['iters']}_iters": quality["gt"][k],
             f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0),
             f"sharded_window_2_ranks_{SHARDED_STEPS}_steps":
                 sharded_win.get(k, 0),

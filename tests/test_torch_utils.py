@@ -165,6 +165,8 @@ def test_public_helpers_match_jax(name):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "das3r_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_quality_e2e.py" in files
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     bad = []
@@ -252,3 +254,21 @@ def test_kernel_wrappers_reject_bad_input():
     x = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError, match="must be on"):
         kernels.check(x, "keys", torch.int64, 1)
+
+
+@pytest.mark.parametrize("name", ["train", "render", "stage1", "rearrange",
+                                  "pipeline"])
+def test_pyproject_names_the_port_entry_points(name):
+    """Each ``das3r-torch-<name>`` console script names a ``main`` of the
+    port, beside JAX's ``das3r-<name>``; ``torch`` is the optional
+    dependency group of the same name."""
+    import importlib
+    import tomllib
+    project = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]
+    scripts = project["scripts"]
+    module, fn = scripts[f"das3r-torch-{name}"].split(":")
+    assert module.startswith("das3r_tpu_torch.") and fn == "main"
+    assert scripts[f"das3r-{name}"] == scripts[f"das3r-torch-{name}"] \
+        .replace("das3r_tpu_torch.", "das3r_tpu.")
+    assert callable(getattr(importlib.import_module(module), fn))
+    assert project["optional-dependencies"]["torch"] == ["torch"]
