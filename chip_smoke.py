@@ -69,7 +69,8 @@ failure:
    phase 4; the bf16 image against the f32 one in JAX's envelope (max <
    1.5e-2, mean < 1e-3); B-bf16's and C-bf16's ``ms`` and ``device_ms``
    beside f32 B's and C's on the same stream, in turns (f32, bf16, bf16,
-   f32), with their bounds; view 0 as 2 tile ranges through B-bf16,
+   f32, f32, bf16; each form's median of its three), with their
+   bounds; view 0 as 2 tile ranges through B-bf16,
    reassembled bitwise the whole-image B-bf16; then 10 ``train_step``s of
    phase 8 with ``table_bf16`` (finite, the loss falls, one launch of
    B-bf16 and C-bf16 a step).
@@ -128,11 +129,11 @@ failure:
 15. trainer: ``das3r_tpu_torch.train.trainer.train_scene`` twice on its
    own copy of the bundle, 44 iterations each (4 epochs), densify with
    clone and split at 10, 20 and 30, an opacity reset at 30, a test
-   report, a save and a checkpoint at 44: once on the entry stream, once
-   on the window path with the probed K. Checks finite losses and
-   parameters, that the loss of iterations 12-22 is below that of 1-11,
-   the written PLY, pose npy, npz and test log, the npz read back equal,
-   and which kernels each run launched.
+   report and a save at 44: once on the entry stream, with a checkpoint
+   at 44, once on the window path with the probed K. Checks finite losses
+   and parameters, that the loss of iterations 12-22 is below that of
+   1-11, the written PLY, pose npy and test log, the entry run's npz read
+   back equal, and which kernels each run launched.
 16. gui: ``das3r_tpu_torch.gui.ViewerScene.from_model_dir`` on the entry
    run's model (iteration 44) at the viewer's 480x320 on ``cuda``, and
    ``gui.server.make_server`` on 127.0.0.1 in a thread, answering real
@@ -161,7 +162,7 @@ failure:
    the loop's ms per iteration, its first and last loss, encode ms per
    frame and decode ms per pair (CUDA events, batches of 8) with a
    float32 and a bfloat16 trunk, a profile of 10 alignment iterations and
-   of one decode batch, and the first 2 pairs of the runner's first
+   of one decode batch, and the first pair of the runner's first
    decode batch (``encode_frames`` then ``decode_pairs`` on gathered
    tokens) on the card against the same functions in float32 on the CPU:
    each float32 map
@@ -188,13 +189,20 @@ failure:
    one fixed batch falling over 5 steps; prints the step ms (host clock
    after a synchronize), a profiled step, the peak memory, the
    checkpoints' seconds and bytes and the data's render seconds. (b)
-   TINY from scratch at ``scripts/train_tiny_stage1.py``'s recorded
-   setting (256 samples at 64x48, 60 epochs, lr 1e-3, freeze none;
-   checkpoint-last written once, not every epoch): the held-out mask
-   IoU >= 0.7 (JAX's record 0.8733), and 3 TINY steps on the
+   TINY from scratch through ``scripts/torch_train_tiny_stage1.py``'s
+   functions (its data sets, configs and ``train``: ``fit``, the held-out
+   IoU, ``stage1_tiny.npz``) at the setting of JAX's record (256 samples
+   at 64x48, 60 epochs, lr 1e-3, freeze none; checkpoint-last written
+   once, not every epoch), in a process of its own beside the quality
+   phase's gt branch, while this process runs the TINY steps against
+   the CPU and (d) (none of which needs (b)'s weights; (b)'s host-bound
+   steps leave the card mostly idle, and their seconds are not the
+   script's alone): the held-out mask IoU >= 0.7 (JAX's record 0.8733),
+   no raster launch, and 3 TINY steps on the
    card against the CPU (losses, and at Adam eps 1e-2 the mask heads,
    within 1e-4 x max|CPU|). (c) ``eval_pose_estimation`` on a synthetic
-   ``tum`` layout (8 frames at 288x512) with (b)'s model: every sequence
+   ``tum`` layout (8 frames at 288x512) with (b)'s model (read back from
+   its npz), beside the predictor branch and the suite: every sequence
    evaluated, a finite ATE. (e) ``run_scene`` with RAFT flows on (b)'s
    learnt model (6 synthetic frames at 64x96, every setting at its
    default): a static share strictly between 0 and 1, the alignment's
@@ -224,15 +232,33 @@ failure:
    0.02549, ``ate_final`` no higher, PSNR >= 30 dB. Each: every loss
    finite, D and F launched by the probe, A, B and C once a training
    step, B and C once a test-pose step; prints the record beside JAX's,
-   the seconds, the ms an iteration and the launches by stage. The two
-   branches run side by side, each in a process of its own.
+   the seconds, the ms an iteration and the launches by stage. Each
+   branch runs in a process of its own, started by stage1_train: the gt
+   branch beside (b), the predictor branch once (b) has saved its
+   weights, beside the suite's process and (c), (e).
+21. suite: ``scripts/torch_run_benchmark_suite.py``'s ``main`` on
+   ``cuda`` in a process of its own (beside the predictor branch), mode
+   by mode, each with its launches counted from 0. Two
+   synthetic scenes named from ``harness.DAVIS_SCENES`` (12 frames at
+   96x128, rearranged, GT dynamic masks in the DAVIS layout): ``psnr``
+   (300 iterations each, ``--gt_dynamic_mask``), each scene in the table,
+   finite and equal to its ``test_log.txt``'s last line; ``render`` on
+   the first (300 iterations on every frame, the video), one video frame
+   a view; ``masks`` on stage 1 of (b)'s TINY weights for those scenes
+   (size 64, 50 alignment iterations), ``mean_J`` in [0, 1] and equal to
+   a numpy recount; ``pose`` on a synthetic 8-frame ``tum`` sequence at
+   288x512 with the pipeline phase's DUST3R_LARGE ``.pth``, a finite ATE.
+   Launches: A, B and C once a training step and B, C once a test-pose
+   step of ``psnr`` and ``render``, D and F in their probes, none of A-F
+   in ``masks`` (its stage 1 included) or ``pose``.
 
 Then the ``kernels`` line (A, B, C, B-bf16 and C-bf16 at the trainer
 scene with their random-scene numbers under ``random_scene``; B, C, D and
 E with their tile-range numbers under ``tile_range``; D, E, F at the
 trainer scene; launches by path, the viewer's, stage 1's, the pipeline's,
 the bf16 steps', the sharded steps' of both paths, stage-1
-training's and the quality runs' included), the ``nvidia-smi`` line, and
+training's, the quality runs' and the suite's modes' included), the
+``nvidia-smi`` line, and
 last the device line. Each phase's line carries ``at_s``, the seconds
 since the script started. Everything it
 writes lives under ``build/`` and is removed at exit (the kernel
@@ -292,7 +318,7 @@ STAGE1_EDGES = 110           # swinstride-5-noncyclic over 16, symmetrized
 # x max|CPU| per map: one pair of DUST3R_LARGE_CONFIG on the card against
 # the same model on the CPU, TF32 off
 STAGE1_CPU_BAR = 1e-4
-STAGE1_CPU_PAIRS = 2         # of the runner's first decode batch, held
+STAGE1_CPU_PAIRS = 1         # of the runner's first decode batch, held
                              # against the CPU (each takes seconds there)
 STAGE1_BF16_MASK_MEAN = 0.05      # the JAX package's bf16 bars
 STAGE1_BF16_PTS_MEDIAN_REL = 0.1
@@ -319,10 +345,10 @@ S1T_RES = (512, 288)         # (W, H)
 S1T_BATCH = 8
 S1T_EPOCHS, S1T_STEPS = 2, 4  # steps an epoch
 S1T_BCE_STEPS = 5
-# TINY from scratch: scripts/train_tiny_stage1.py with the arguments of
-# docs/tiny_stage1_iou_r5.json (JAX's record: held-out IoU 0.8733)
-TINY_RUN = dict(n_train=256, n_test=32, res=(64, 48), epochs=60, lr=1e-3,
-                batch=8, train_seed=1, test_seed=999)
+# TINY from scratch: scripts/torch_train_tiny_stage1.py with the arguments
+# of JAX's record, docs/tiny_stage1_iou_r5.json (held-out IoU 0.8733)
+TINY_ARGV = ("--epochs", "60", "--n_train", "256", "--n_test", "32",
+             "--resolution", "64", "48", "--lr", "1e-3", "--freeze", "none")
 TINY_IOU_BAR = 0.7           # the bar JAX's record cleared (vs_baseline)
 JAX_TINY_IOU = 0.8733
 # card against CPU, 3 TINY steps: losses and mask-head parameters within
@@ -358,6 +384,14 @@ JAX_QUALITY = {"predictor": dict(psnr=48.564, stage1_mask_iou=0.7724,
                "gt": dict(psnr=37.854, ate_init=0.02549, ate_final=0.02489)}
 QUALITY_PSNR_BAR = 30.0      # dB: the script's PSNR_BAR_DB
 QUALITY_TIMEOUT = 600        # s, each branch's process, start-up included
+TINY_TIMEOUT = 900           # s, (b)'s process, start-up included
+# the suite phase: scripts/torch_run_benchmark_suite.py on synthetic scenes
+# named from harness.DAVIS_SCENES, in the DAVIS layouts, at the quality
+# predictor branch's size; its pose mode on a tum sequence at full size
+SUITE_SCENES = 2
+SUITE = dict(frames=12, height=96, width=128, iters=300)
+SUITE_POSE_FRAMES = 8        # at HEIGHT x WIDTH
+SUITE_STAGE1_SIZE = 64       # the masks' stage 1: TINY at its 64x48
 # table columns by what they hold
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
@@ -368,8 +402,8 @@ BF16_ENV_MAX, BF16_ENV_MEAN = 1.5e-2, 1e-3
 BF16_BG = (0.2, 0.3, 0.1)
 BF16_SUMMARY_KEYS = ("max_abs_err", "max_abs_err_with_n_last",
                      "err_over_max_g", "image_err_vs_f32", "ms", "device_ms",
-                     "f32_ms", "f32_device_ms", "plain_ms", "bound_ms",
-                     "bound_by", "n_last_agrees")
+                     "f32_ms", "f32_device_ms", "device_ms_turns",
+                     "plain_ms", "bound_ms", "bound_by", "n_last_agrees")
 SUMMARY_KEYS = ("max_abs_err", "err_over_max_g", "ms", "device_ms",
                 "device_ms_calls", "device_ms_kernels", "device_ms_sessions",
                 "ms_with_n_last", "plain_ms", "library_ms",
@@ -1245,6 +1279,30 @@ class _Timed:
         setattr(self.module, self.name, self.orig)
 
 
+# f32 and bf16 in turns, three each: the median of three turns sets a
+# kernel's time, so one turn's profiler reading alone cannot (on the H100
+# machine a turn's profiler median has read half the kernel's time while
+# its CUDA-event time stayed level with the other turns')
+TURNS = ("f32", "bf16", "bf16", "f32", "f32", "bf16")
+
+
+def turn_fields(turns: list, dev_turns: list) -> dict:
+    """The bf16 form's ``ms`` and ``device_ms`` and the f32 form's, each
+    the median of its ``TURNS``; every turn's reading, and the profiler
+    sessions and records of each ``device_ms`` turn."""
+    pick = {k: [i for i, t in enumerate(TURNS) if t == k]
+            for k in ("f32", "bf16")}
+    dev = [d["device_ms"] for d in dev_turns]
+    return dict(
+        ms=statistics.median(turns[i] for i in pick["bf16"]),
+        device_ms=statistics.median(dev[i] for i in pick["bf16"]),
+        f32_ms=statistics.median(turns[i] for i in pick["f32"]),
+        f32_device_ms=statistics.median(dev[i] for i in pick["f32"]),
+        turn_order=list(TURNS), ms_turns=turns, device_ms_turns=dev,
+        device_ms_turn_sessions=[d["device_ms_sessions"] for d in dev_turns],
+        device_ms_turn_records=[d["device_ms_kernels"] for d in dev_turns])
+
+
 def bf16_table_view(prep, settings, dev) -> list[dict]:
     """Kernels B and C in their table_bf16 form on one view's entry stream
     (``prep`` binned with ``settings``): the card's encode bitwise the
@@ -1252,8 +1310,7 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
     plain versions (the f32 plain versions on the decoded table) at the
     bars of ``entry_kernel_parity``; the bf16 image against the f32 image
     in JAX's envelope; B-bf16's and C-bf16's times beside f32 B's and C's
-    on the same stream, in turns (f32, bf16, bf16, f32), and their
-    bounds."""
+    on the same stream, in ``TURNS``, and their bounds."""
     import numpy as np
     import torch
     from das3r_tpu_torch.ops.splat import binning
@@ -1306,10 +1363,10 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
     def fwd(tab):
         return eb.blend_forward(tab, *stream)
 
-    turns = [time_ms(lambda t=t: fwd(t)) for t in (table, t16, t16, table)]
-    dev_turns = [device_ms(lambda t=t: fwd(t),
-                           "blend_forward_kernel")["device_ms"]
-                 for t in (table, t16, t16, table)]
+    tabs = [{"f32": table, "bf16": t16}[k] for k in TURNS]
+    turns = [time_ms(lambda t=t: fwd(t)) for t in tabs]
+    dev_turns = [device_ms(lambda t=t: fwd(t), "blend_forward_kernel")
+                 for t in tabs]
     b = dict(
         name="blend_forward_bf16", route="cuda",
         source="das3r_tpu_torch/csrc/blend_forward.cu",
@@ -1318,11 +1375,7 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
              "staged (JAX: _load_attrs, entry_blend.py:71)",
         max_abs_err=err, max_abs_err_with_n_last=err_n,
         image_err_vs_f32=env,
-        ms=(turns[1] + turns[2]) / 2, device_ms=(dev_turns[1] + dev_turns[2])
-        / 2, f32_ms=(turns[0] + turns[3]) / 2,
-        f32_device_ms=(dev_turns[0] + dev_turns[3]) / 2,
-        ms_turns_f32_bf16_bf16_f32=turns,
-        device_ms_turns_f32_bf16_bf16_f32=dev_turns,
+        **turn_fields(turns, dev_turns),
         plain_ms=time_ms(lambda: eb.blend_forward_plain(
             eb.decode_bf16_table(t16), *stream)),
         library_ms=None, library_device_ms=None, bound_ms=b_ms,
@@ -1352,11 +1405,10 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
     def bwd(tab, tf, nl):
         return eb.blend_backward(tab, *stream, tf, nl, g_cpre, g_tfinal)
 
-    args = [(table, t32n, nl32), (t16, tfinal_n, n_last),
-            (t16, tfinal_n, n_last), (table, t32n, nl32)]
+    args = [{"f32": (table, t32n, nl32), "bf16": (t16, tfinal_n, n_last)}[k]
+            for k in TURNS]
     turns = [time_ms(lambda a=a: bwd(*a)) for a in args]
-    dev_turns = [device_ms(lambda a=a: bwd(*a),
-                           "blend_backward_kernel")["device_ms"]
+    dev_turns = [device_ms(lambda a=a: bwd(*a), "blend_backward_kernel")
                  for a in args]
     evals = int(n_last.sum())
     n_slots, pre_bytes = prefix_bytes(es, n_last.amax(1).long(),
@@ -1376,11 +1428,7 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
              "gradient is the f32 table's (JAX: _load_attrs at :248, _bwd "
              "at :510)",
         max_abs_err=float((got - want).abs().max()), err_over_max_g=rel,
-        ms=(turns[1] + turns[2]) / 2, device_ms=(dev_turns[1] + dev_turns[2])
-        / 2, f32_ms=(turns[0] + turns[3]) / 2,
-        f32_device_ms=(dev_turns[0] + dev_turns[3]) / 2,
-        ms_turns_f32_bf16_bf16_f32=turns,
-        device_ms_turns_f32_bf16_bf16_f32=dev_turns,
+        **turn_fields(turns, dev_turns),
         plain_ms=time_ms(lambda: eb.blend_backward_plain(
             eb.decode_bf16_table(t16), *stream, plain.tfinal, plain.tin,
             g_cpre, g_tfinal)),
@@ -2721,7 +2769,11 @@ def phase_trainer(bundle, k_probe: int, dev):
                 densify=True, densify_clone=True, densify_split=True,
                 testing_iterations={TRAINER_ITERS},
                 saving_iterations={TRAINER_ITERS},
-                checkpoint_iterations={TRAINER_ITERS},
+                # the compressed checkpoint (~20 s) written and read back
+                # on the entry stream only: the window run's state is the
+                # same file format
+                checkpoint_iterations=({TRAINER_ITERS}
+                                       if path == "entry_stream" else set()),
                 progress=progress.append, warn=warns.append, device=dev))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -2742,21 +2794,25 @@ def phase_trainer(bundle, k_probe: int, dev):
         files = [model / "point_cloud" / f"iteration_{TRAINER_ITERS}" /
                  "point_cloud.ply",
                  model / "pose" / f"pose_{TRAINER_ITERS}.npy",
-                 model / f"chkpnt{TRAINER_ITERS}.npz", model / "test_log.txt"]
+                 model / "test_log.txt"]
+        if path == "entry_stream":
+            files.append(model / f"chkpnt{TRAINER_ITERS}.npz")
         missing = [str(f) for f in files if not f.exists()]
         if missing:
             raise AssertionError(f"{path}: not written: {missing}")
-        loaded, meta = ckpt.load_train_state(str(files[2]), state,
-                                             meta_template=res.meta)
-        flat = [ckpt._flatten_with_paths(x)
-                for x in (loaded, state, meta, res.meta)]
-        if not (flat[0].keys() == flat[1].keys()
-                and all(np.array_equal(flat[0][k], flat[1][k])
-                        for k in flat[0])
-                and all(np.array_equal(flat[2][k], flat[3][k])
-                        for k in flat[2])):
-            raise AssertionError(f"{path}: the checkpoint reads back "
-                                 "different")
+        if path == "entry_stream":
+            loaded, meta = ckpt.load_train_state(str(files[-1]), state,
+                                                 meta_template=res.meta)
+            flat = [ckpt._flatten_with_paths(x)
+                    for x in (loaded, state, meta, res.meta)]
+            if not (flat[0].keys() == flat[1].keys()
+                    and all(np.array_equal(flat[0][k], flat[1][k])
+                            for k in flat[0])
+                    and all(np.array_equal(flat[2][k], flat[3][k])
+                            for k in flat[2])):
+                raise AssertionError(f"{path}: the checkpoint reads back "
+                                     "different")
+            del loaded, flat
         for name in want[path]:
             if counts[name] == 0:
                 raise AssertionError(f"{path}: {name} never launched")
@@ -2790,7 +2846,7 @@ def phase_trainer(bundle, k_probe: int, dev):
                                        torch.zeros(3, device=dev), st, cfg)
         one_step()
         phase_train_profile(one_step, f"trainer_{path}_step_profile")
-        del res, state, loaded, run_bundle, one_step
+        del res, state, run_bundle, one_step
         torch.cuda.empty_cache()
     emit("trainer", iterations=TRAINER_ITERS, runs=runs,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
@@ -3203,24 +3259,89 @@ def _timed_steps(orig, times: list, losses: list):
     return make
 
 
-def tiny_mask_iou(model, dataset, dev, thr: float = 0.5) -> float:
-    """``scripts/train_tiny_stage1.py::mask_iou_eval``: the mean IoU of
-    every held-out view's dynamic mask > ``thr`` against its GT."""
-    import numpy as np
-    import torch
-    from das3r_tpu_torch.eval.masks import mask_iou
-    from das3r_tpu_torch.predictor.datasets import batch_iterator
-    ious = []
-    with torch.no_grad():
-        for img1, img2, batch in batch_iterator(
-                dataset, TINY_RUN["batch"], seed=0, shuffle=False,
-                drop_last=False):
-            r1, r2 = model(torch.as_tensor(img1, device=dev),
-                           torch.as_tensor(img2, device=dev))
-            for res, gt in ((r1, batch.gt_mask_1), (r2, batch.gt_mask_2)):
-                pred = (res["dynamic_mask"] > thr).cpu().numpy()
-                ious += [mask_iou(p, g > 0.5) for p, g in zip(pred, gt)]
-    return float(np.mean(ious))
+def script_module(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tiny_recipe(dev):
+    """``scripts/torch_train_tiny_stage1.py`` as a module, and its
+    arguments at ``TINY_ARGV`` on ``dev``, writing to WORK/tiny."""
+    script = script_module("torch_train_tiny_stage1")
+    return script, script.parse_args(
+        [*TINY_ARGV, "--device", str(dev), "--out", str(WORK / "tiny")])
+
+
+def tiny_run(dev) -> dict:
+    """(b): TINY from scratch through the TINY script's data sets, configs
+    and ``train`` at ``TINY_ARGV`` on ``dev`` (checkpoint-last once, at
+    the end: the script's default writes all 72M parameters and their
+    moments, ~870 MB, every epoch), its ``stage1_tiny.npz`` under
+    WORK/tiny; the held-out IoU at its bar and no raster launch."""
+    import math
+
+    from das3r_tpu_torch.predictor import train_loop
+
+    script, args = tiny_recipe(dev)
+
+    def run():
+        t0 = time.perf_counter()
+        train, test = (_Rendered(d) for d in script.datasets(args))
+        render_s = time.perf_counter() - t0
+        tcfg, lcfg = script.configs(args)
+        lcfg = dataclasses.replace(lcfg, save_freq=args.epochs)
+        with _Timed(train_loop, "_save_ckpt") as ckpt, \
+                _Timed(train_loop, "evaluate_stats") as evals:
+            record, _, hist = script.train(args, train, test, tcfg, lcfg,
+                                           progress=lambda *_: None)
+        return record, hist, render_s, tcfg, lcfg, ckpt, evals
+
+    (record, hist, render_s, tcfg, lcfg, ckpt, evals), launches = \
+        run_counted(run)
+    iou = record["value"]
+    if not (iou >= TINY_IOU_BAR and not any(launches.values()) and all(
+            math.isfinite(h["train_loss"]) for h in hist)):
+        raise AssertionError(f"TINY held-out mask IoU {iou} (bar "
+                             f"{TINY_IOU_BAR}), launches {launches}: "
+                             f"{hist[-1]}")
+    fit_s = record["seconds"]["train"]
+    steps = args.epochs * tcfg.steps_per_epoch
+    return dict(
+        record=record, heldout_mask_iou=iou, jax_record_iou=JAX_TINY_IOU,
+        iou_bar=TINY_IOU_BAR, argv=list(TINY_ARGV), steps=steps,
+        save_freq=lcfg.save_freq, render_data_s=render_s, fit_s=fit_s,
+        checkpoint_writes=len(ckpt.seconds), checkpoint_s=sum(ckpt.seconds),
+        test_passes=len(evals.seconds), test_s=sum(evals.seconds),
+        step_ms_loop=1e3 * (fit_s - sum(ckpt.seconds) - sum(evals.seconds))
+        / steps, first_train_loss=hist[0]["train_loss"],
+        final_train_loss=hist[-1]["train_loss"],
+        test_loss_med=[h.get("test_wall_loss_med") for h in hist
+                       if "test_wall_loss_med" in h], launches=launches)
+
+
+def tiny_child(out: str, dev: str) -> None:
+    """``tiny_run`` in a process of its own, its result written to
+    ``out`` as JSON."""
+    Path(out).write_text(json.dumps(tiny_run(dev)))
+
+
+def tiny_trained(dev):
+    """(b)'s trained TINY, read back from its ``stage1_tiny.npz`` (every
+    tensor, the upsampling biases untied first), on ``dev``."""
+    from das3r_tpu_torch.models.croco.dpt import untie_upsample_bias
+    from das3r_tpu_torch.models.croco.dust3r import AsymmetricCroCo3D
+    from das3r_tpu_torch.models.croco.testkit import TINY
+    from das3r_tpu_torch.predictor import train_loop
+    model = AsymmetricCroCo3D(TINY)
+    untie_upsample_bias(model)
+    train_loop.load_params_npz(str(WORK / "tiny" / "stage1_tiny.npz"),
+                               model)
+    return model.to(dev)
 
 
 @functools.lru_cache(maxsize=1)
@@ -3241,7 +3362,7 @@ def tiny_model(dev):
     return model.to(dev)
 
 
-def stage1_card_vs_cpu(batch, dev) -> dict:
+def stage1_card_vs_cpu(batch, lr: float, dev) -> dict:
     """``S1T_CPU_STEPS`` steps of the TINY model (freeze none, lr 1e-3) on
     one batch, on the card and on the CPU, at the recipe's eps and at
     ``S1T_SMOOTH_EPS``: every loss within STAGE1_CPU_BAR x |CPU|; at the
@@ -3259,7 +3380,7 @@ def stage1_card_vs_cpu(batch, dev) -> dict:
             model = tiny_model(on)
             train, _ = training.split_params(model, "none")
             cfg = training.Stage1TrainConfig(
-                lr=TINY_RUN["lr"], warmup_epochs=0.0, steps_per_epoch=10,
+                lr=lr, warmup_epochs=0.0, steps_per_epoch=10,
                 epochs=10, freeze="none", eps=eps)
             step = training.make_train_step(model, cfg)
             opt = training.adamw_init(train)
@@ -3487,22 +3608,20 @@ def stage1_dp_tiny(dev) -> dict:
     eps ``S1T_SMOOTH_EPS``, a test pass every epoch."""
     import numpy as np
     from das3r_tpu_torch.predictor import train_loop
-    epochs = TINY_RUN["epochs"]
+    script, args = tiny_recipe(dev)
+    train_ds, test_ds = script.datasets(args)
+    tcfg, lcfg = script.configs(args)
     spec = dict(
         config="TINY",
-        train=dict(n=TINY_RUN["n_train"], resolution=list(TINY_RUN["res"]),
-                   seed=TINY_RUN["train_seed"]),
-        test=dict(n=TINY_RUN["n_test"], resolution=list(TINY_RUN["res"]),
-                  seed=TINY_RUN["test_seed"]),
-        train_cfg=dict(lr=TINY_RUN["lr"], epochs=epochs,
-                       steps_per_epoch=TINY_RUN["n_train"]
-                       // TINY_RUN["batch"],
-                       warmup_epochs=max(1.0, epochs * 0.05), freeze="none",
-                       eps=S1T_SMOOTH_EPS),
-        loop=dict(epochs=S1T_DP_EPOCHS, batch_size=TINY_RUN["batch"],
+        train=dict(n=train_ds.n, resolution=list(train_ds.resolution),
+                   seed=train_ds.seed),
+        test=dict(n=test_ds.n, resolution=list(test_ds.resolution),
+                  seed=test_ds.seed),
+        train_cfg=dict(dataclasses.asdict(tcfg), eps=S1T_SMOOTH_EPS),
+        loop=dict(epochs=S1T_DP_EPOCHS, batch_size=lcfg.batch_size,
                   eval_freq=1, save_freq=S1T_DP_EPOCHS + 1))
     ranks, work = stage1_fit_parallel("tiny", spec, tiny_weights(), dev)
-    steps = S1T_DP_EPOCHS * TINY_RUN["n_train"] // TINY_RUN["batch"]
+    steps = S1T_DP_EPOCHS * tcfg.steps_per_epoch
     check_ranks("d1", ranks, steps)
     # the one-rank fit on the card, from the same files
     model, train, tests, tcfg, lcfg = stage1_fit_args(work, spec, dev)
@@ -3672,10 +3791,14 @@ def learnt_flows(model, dev) -> dict:
 
 def phase_stage1_train(sd, dev):
     """Stage-1 training (``predictor/train_loop.fit``) on the card: (a) the
-    DAS3R recipe at DUST3R_LARGE_CONFIG, (b) TINY from scratch at JAX's
-    recorded setting, held-out mask IoU, and TINY steps on the card
-    against the CPU, (c) ``eval_pose_estimation`` on a synthetic tum
-    layout with (b)'s model. No raster kernel may launch."""
+    DAS3R recipe at DUST3R_LARGE_CONFIG; (b) TINY from scratch through the
+    TINY script at JAX's recorded setting, held-out mask IoU, in a process
+    of its own beside the quality phase's gt branch, while TINY steps on
+    the card are held against the CPU and (d) runs; (c)
+    ``eval_pose_estimation`` on a synthetic tum layout with (b)'s model
+    and (e), beside the quality phase's predictor branch and the suite.
+    No raster kernel may launch. Returns the launches and the quality
+    phase's children."""
     import math
     import os
 
@@ -3803,65 +3926,38 @@ def phase_stage1_train(sd, dev):
             losses=step_losses, history=hist, mask_bce_5_steps=bce,
             profile_one_step=prof)
 
-        # (b) TINY from scratch at JAX's recorded setting
+        # (b) TINY from scratch in a process of its own (``tiny_run``),
+        # beside the quality phase's gt branch, and here meanwhile the
+        # TINY steps against the CPU and (d): none of them needs (b)'s
+        # weights, and (b)'s host-bound steps leave the card mostly idle
+        children = {"gt": quality_spawn("gt", dev)}
+        tiny_proc = spawn("tiny_child", WORK / "tiny.json", dev)
+        script, args = tiny_recipe(dev)
         t0 = time.perf_counter()
-        tiny_train = _Rendered(WallTwoViewDataset(
-            n=TINY_RUN["n_train"], resolution=TINY_RUN["res"],
-            seed=TINY_RUN["train_seed"]))
-        tiny_test = _Rendered(WallTwoViewDataset(
-            n=TINY_RUN["n_test"], resolution=TINY_RUN["res"],
-            seed=TINY_RUN["test_seed"]))
-        tiny_render_s = time.perf_counter() - t0
-        say("(a) checks done; (b) data rendered", tiny_render_s)
-        epochs = TINY_RUN["epochs"]
-        steps = TINY_RUN["n_train"] // TINY_RUN["batch"]
-        tcfg = training.Stage1TrainConfig(
-            lr=TINY_RUN["lr"], epochs=epochs, steps_per_epoch=steps,
-            warmup_epochs=max(1.0, epochs * 0.05), freeze="none")
-        # checkpoint-last once, at the end (the script's default writes
-        # all 72M parameters and their moments, ~870 MB, every epoch)
-        lcfg = train_loop.Stage1LoopConfig(
-            epochs=epochs, batch_size=TINY_RUN["batch"],
-            eval_freq=max(1, epochs // 10), save_freq=epochs,
-            out_dir=str(WORK / "tiny"))
-        model = tiny_model(dev)
-        with _Timed(train_loop, "_save_ckpt") as ckpt, \
-                _Timed(train_loop, "evaluate_stats") as evals:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            _, hist = train_loop.fit(model, tiny_train, {"wall": tiny_test},
-                                     tcfg, lcfg, progress=lambda *_: None,
-                                     device=dev)
-            torch.cuda.synchronize()
-            tiny_s = time.perf_counter() - t1
-        say("(b) fit", tiny_s)
-        iou = tiny_mask_iou(model, tiny_test, dev)
-        train_loop.save_params_npz(str(WORK / "tiny" / "stage1_tiny.npz"),
-                                   model)
-        if not (iou >= TINY_IOU_BAR and all(
-                math.isfinite(h["train_loss"]) for h in hist)):
-            raise AssertionError(f"TINY held-out mask IoU {iou} < "
-                                 f"{TINY_IOU_BAR}: {hist[-1]}")
-        loop_s = tiny_s - sum(ckpt.seconds) - sum(evals.seconds)
-        tiny = dict(
-            heldout_mask_iou=iou, jax_record_iou=JAX_TINY_IOU,
-            iou_bar=TINY_IOU_BAR, epochs=epochs, steps=epochs * steps,
-            n_train=TINY_RUN["n_train"], resolution=list(TINY_RUN["res"]),
-            lr=TINY_RUN["lr"], freeze="none", render_data_s=tiny_render_s,
-            fit_s=tiny_s, checkpoint_writes=len(ckpt.seconds),
-            checkpoint_s=sum(ckpt.seconds), test_passes=len(evals.seconds),
-            test_s=sum(evals.seconds),
-            step_ms_loop=1e3 * loop_s / (epochs * steps),
-            first_train_loss=hist[0]["train_loss"],
-            final_train_loss=hist[-1]["train_loss"],
-            test_loss_med=[h.get("test_wall_loss_med") for h in hist
-                           if "test_wall_loss_med" in h])
-        t0 = time.perf_counter()
-        first = next(batch_iterator(tiny_train, S1T_CPU_BATCH, seed=0))
-        tiny["card_vs_cpu"] = stage1_card_vs_cpu(first, dev)
-        tiny["card_vs_cpu_s"] = time.perf_counter() - t0
-
+        first = next(batch_iterator(script.datasets(args)[0], S1T_CPU_BATCH,
+                                    seed=0))
+        card_vs_cpu = stage1_card_vs_cpu(first, args.lr, dev)
+        card_vs_cpu_s = time.perf_counter() - t0
         say("(b) card against CPU done")
+        # (d) the data-parallel fit on two ranks sharing the card
+        t0 = time.perf_counter()
+        dp = dict(d1=stage1_dp_tiny(dev))
+        say("(d1) done", time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        dp["d2"] = stage1_dp_full(sd, dp_render_s, dev)
+        dp["seconds"] = time.perf_counter() - t0
+        dp["beside_tiny"] = True
+        say("(d2) done", dp["seconds"])
+        ended = wait_children({"tiny": tiny_proc}, TINY_TIMEOUT)
+        tiny = json.loads((WORK / "tiny.json").read_text())
+        tiny.update(card_vs_cpu=card_vs_cpu, card_vs_cpu_s=card_vs_cpu_s,
+                    child_s=ended["tiny"])
+        say("(b) fit", tiny["fit_s"])
+        # the quality phase's predictor branch and the suite on (b)'s
+        # weights, beside (c) and (e) here
+        children["predictor"] = quality_spawn("predictor", dev)
+        children["suite"] = spawn("suite_child", WORK / "suite.json", dev)
+        model = tiny_trained(dev)
         # (c) pose evaluation on a synthetic tum layout, (b)'s model
         seq = "rgbd_synthetic_wall"
         gen, root = WORK / "pose_gen", WORK / "pose_data"
@@ -3890,49 +3986,58 @@ def phase_stage1_train(sd, dev):
         del model
         torch.cuda.empty_cache()
         say("(e) flows on learnt weights done")
-        # (d) the data-parallel fit on two ranks sharing the card
-        t0 = time.perf_counter()
-        dp = dict(d1=stage1_dp_tiny(dev))
-        say("(d1) done", time.perf_counter() - t0)
-        torch.cuda.empty_cache()
-        dp["d2"] = stage1_dp_full(sd, dp_render_s, dev)
-        dp["seconds"] = time.perf_counter() - t0
-        say("(d2) done", dp["seconds"])
-        return full, tiny, pose, flows, dp
+        return full, tiny, pose, flows, dp, children
 
-    (full, tiny, pose, flows, dp), launches = run_counted(main_path)
+    (full, tiny, pose, flows, dp, children), launches = run_counted(
+        main_path)
     if any(launches.values()):
         raise AssertionError(f"stage-1 training launched a raster kernel: "
                              f"{launches}")
     emit("stage1_train", full_width=full, tiny=tiny, pose_eval=pose,
          learnt_flows=flows, data_parallel=dp, launches=launches)
-    return launches
+    return launches, children
 
 
-def quality_script():
-    """``scripts/torch_quality_e2e.py`` as a module."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_quality_e2e", ROOT / "scripts" / "torch_quality_e2e.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+@contextlib.contextmanager
+def trainer_stages():
+    """While inside, the stage-2 trainer's probe (``build_scene``), its
+    training steps, its test-pose steps and its ``train_scene`` runs are
+    each counted (``_Timed``)."""
+    from das3r_tpu_torch.train import scene_setup, trainer
+    from das3r_tpu_torch.train import step as step_mod
+    with _Timed(scene_setup, "build_scene") as probe, \
+            _Timed(step_mod, "train_step", sync=False) as steps, \
+            _Timed(step_mod, "test_pose_step", sync=False) as tp_steps, \
+            _Timed(trainer, "train_scene") as train:
+        yield probe, steps, tp_steps, train
+
+
+def launches_by_stage(launches: dict, probe, steps, tp_steps) -> dict:
+    """A run's launches by the trainer's stage (``trainer_stages``); the
+    rest, the evaluation renders, under ``eval``."""
+    by_stage = {"probe": dict(probe.launches), "train": dict(steps.launches),
+                "test_pose": dict(tp_steps.launches)}
+    by_stage["eval"] = {k: launches[k] - sum(by_stage[s].get(k, 0)
+                                             for s in by_stage)
+                        for k in launches}
+    return by_stage
 
 
 def quality_launch_gate(branch: str, by_stage: dict, steps: int,
-                        tp_steps: int) -> None:
+                        tp_steps: int | None) -> None:
     """The probe launched D and F, every training step A, B and C once,
-    every test-pose step B and C once."""
+    every test-pose step B and C once (None: a run without test poses)."""
     want = {"probe": {"extract_windows": None, "window_blend_forward": None},
             "train": {k: steps for k in ("extract_chunks", "blend_forward",
-                                         "blend_backward")},
-            "test_pose": {k: tp_steps for k in ("blend_forward",
-                                                "blend_backward")}}
+                                         "blend_backward")}}
+    if tp_steps is not None:
+        want["test_pose"] = {k: tp_steps for k in ("blend_forward",
+                                                   "blend_backward")}
     for stage, names in want.items():
         for k, n in names.items():
             got = by_stage[stage].get(k, 0)
             if not got or (n is not None and got != n):
-                raise AssertionError(f"quality {branch} {stage}: {k} "
+                raise AssertionError(f"{branch} {stage}: {k} "
                                      f"launched {got} times (want "
                                      f"{n or '> 0'}): {by_stage}")
 
@@ -3944,15 +4049,10 @@ def quality_run(branch: str, argv: list, dev) -> tuple[dict, dict]:
     import math
 
     import torch
-    from das3r_tpu_torch.train import scene_setup, trainer
-    from das3r_tpu_torch.train import step as step_mod
 
-    script = quality_script()
+    script = script_module("torch_quality_e2e")
     cuda = torch.device(dev).type == "cuda"
-    with _Timed(scene_setup, "build_scene") as probe, \
-            _Timed(step_mod, "train_step", sync=False) as steps, \
-            _Timed(step_mod, "test_pose_step", sync=False) as tp_steps, \
-            _Timed(trainer, "train_scene") as train:
+    with trainer_stages() as (probe, steps, tp_steps, train):
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3966,12 +4066,9 @@ def quality_run(branch: str, argv: list, dev) -> tuple[dict, dict]:
     if len(losses) != iters or bad:
         raise AssertionError(f"quality {branch}: {len(losses)} losses, "
                              f"non-finite: {bad[:4]}")
-    by_stage = {"probe": dict(probe.launches), "train": dict(steps.launches),
-                "test_pose": dict(tp_steps.launches)}
-    by_stage["eval"] = {k: launches[k] - sum(by_stage[s].get(k, 0)
-                                             for s in by_stage)
-                        for k in launches}
-    quality_launch_gate(branch, by_stage, steps.calls, tp_steps.calls)
+    by_stage = launches_by_stage(launches, probe, steps, tp_steps)
+    quality_launch_gate(f"quality {branch}", by_stage, steps.calls,
+                        tp_steps.calls)
     st = res.final_settings
     run = dict(
         record=record, seconds=seconds, train_steps=steps.calls,
@@ -3999,13 +4096,248 @@ def quality_child(branch: str, out: str, dev: str, *argv: str) -> None:
     Path(out).write_text(json.dumps(dict(run=run, launches=launches)))
 
 
-def phase_quality(dev):
-    """The end-to-end quality path, ``scripts/torch_quality_e2e.py``, at
-    the JAX records' recipes: the predictor branch on the TINY weights
-    ``stage1_train`` (b) trained and saved, and the gt branch. Each runs
-    in a fresh process, as a user runs the script; the two run side by
-    side on the card (their host-bound steps share it, so their seconds
-    are not the script's alone)."""
+def suite_scenes(root: Path) -> list:
+    """``SUITE_SCENES`` synthetic scenes named from
+    ``harness.DAVIS_SCENES``, each rearranged into ``root/data/<scene>``,
+    its GT dynamic masks in the DAVIS layout (``root/gt/<scene>/
+    00000.png``) and its frames in ``root/frames/<scene>``."""
+    from das3r_tpu_torch.data import rearrange
+    from das3r_tpu_torch.data.synthetic import make_synthetic_stage1_dir
+    from das3r_tpu_torch.eval import harness
+    scenes = harness.DAVIS_SCENES[:SUITE_SCENES]
+    for k, scene in enumerate(scenes):
+        gen = root / "gen" / scene
+        make_synthetic_stage1_dir(str(gen), n_frames=SUITE["frames"],
+                                  height=SUITE["height"],
+                                  width=SUITE["width"], seed=SEED + 20 + k)
+        rearrange.rearrange_scene(str(gen), str(root / "data" / scene))
+        for sub in ("gt", "frames"):
+            (root / sub / scene).mkdir(parents=True)
+        for f in sorted(gen.glob("dynamic_mask_*.png")):
+            shutil.copy(f, root / "gt" / scene
+                        / f"{int(f.stem.split('_')[-1]):05d}.png")
+        for f in sorted(gen.glob("frame_*.png")):
+            shutil.copy(f, root / "frames" / scene)
+    return scenes
+
+
+def video_frames(path: str) -> int:
+    """The frames of the video the render tool wrote: a GIF's (PIL), or
+    an mp4's (imageio, else ffprobe)."""
+    if path.endswith(".gif"):
+        from PIL import Image
+        with Image.open(path) as im:
+            return im.n_frames
+    try:
+        import imageio.v2 as imageio
+        with imageio.get_reader(path) as r:
+            return r.count_frames()
+    except Exception:
+        return int(subprocess.run(
+            ["ffprobe", "-v", "error", "-count_frames", "-select_streams",
+             "v:0", "-show_entries", "stream=nb_read_frames", "-of",
+             "csv=p=0", path], check=True, capture_output=True, text=True,
+            timeout=60).stdout.strip())
+
+
+def masks_recount(pred_root: Path, gt_root: Path, scenes: list) -> float:
+    """The table_mask protocol's mean J counted again with numpy: each
+    predicted ``dynamic_mask_<i>.png`` against GT ``<i>.png`` sampled at
+    the prediction's size (row ``floor(y H / h)``, column likewise), J
+    the intersection over the union (1 where both are empty), the mean
+    over frames, then over scenes."""
+    import numpy as np
+    from PIL import Image
+    per_scene = []
+    for scene in scenes:
+        js = []
+        for f in sorted((pred_root / scene).glob("dynamic_mask_*.png")):
+            g_path = gt_root / scene / f"{int(f.stem.split('_')[-1]):05d}.png"
+            if not g_path.exists():
+                continue
+            pred = np.asarray(Image.open(f).convert("L")) > 0
+            gt = np.asarray(Image.open(g_path).convert("L")) > 0
+            (h, w), (hh, ww) = pred.shape, gt.shape
+            gt = gt[(np.arange(h) * hh) // h][:, (np.arange(w) * ww) // w]
+            union = float((pred | gt).sum())
+            js.append(float((pred & gt).sum()) / union if union else 1.0)
+        per_scene.append(float(np.mean(js)))
+    return float(np.mean(per_scene))
+
+
+def suite_run(dev) -> dict:
+    """``scripts/torch_run_benchmark_suite.py``'s ``main`` on ``dev``,
+    each mode as a user runs it, its launches counted from 0, and held at
+    its bars: ``psnr`` and ``render`` on ``suite_scenes``, ``masks`` on the
+    stage-1 outputs of (b)'s TINY weights for those scenes, ``pose`` on a
+    synthetic tum sequence with the pipeline phase's DUST3R_LARGE .pth."""
+    import math
+
+    from das3r_tpu_torch.data.synthetic import make_synthetic_stage1_dir
+    from das3r_tpu_torch.eval import harness
+    from das3r_tpu_torch.predictor import alignment, runner
+
+    suite = script_module("torch_run_benchmark_suite")
+    root = WORK / "suite"
+    t0 = time.perf_counter()
+    scenes = suite_scenes(root)
+    out = {"scenes": scenes, "setup_s": time.perf_counter() - t0}
+
+    def run(mode, *argv, before=None):
+        """one mode's main (after ``before``, counted with it): its
+        result, seconds, launches and launches by trainer stage"""
+        argv = [mode, *map(str, argv), "--device", str(dev)]
+
+        def both():
+            extra = before() if before else None
+            return extra, suite.main(argv)
+        with trainer_stages() as (probe, steps, tp_steps, train):
+            t1 = time.perf_counter()
+            (extra, ret), launches = run_counted(both)
+            seconds = time.perf_counter() - t1
+        by_stage = launches_by_stage(launches, probe, steps, tp_steps)
+        return ret, dict(argv=argv, seconds=seconds, launches=launches,
+                         launches_by_stage=by_stage, steps=steps.calls,
+                         test_pose_steps=tp_steps.calls,
+                         train_scene_s=train.seconds, extra=extra)
+
+    iters = SUITE["iters"]
+    # psnr: the (i+5)%10 split, GT dynamic masks, the PSNR table
+    ret, rec = run("psnr", "--dataset", "davis", "--data_root",
+                   root / "data", "--output_root", root / "psnr",
+                   "--iterations", iters, "--scenes", *scenes,
+                   "--gt_dynamic_mask", root / "gt")
+    quality_launch_gate("suite psnr", rec["launches_by_stage"],
+                        rec["steps"], rec["test_pose_steps"])
+    table = ret["result"]
+    logs = {s: harness.last_psnr(str(root / "psnr" / s / "test_log.txt"))
+            for s in scenes}
+    if not (rec["steps"] == iters * len(scenes) and all(
+            table.get(s) is not None and math.isfinite(table[s])
+            and table[s] == logs[s] for s in scenes)):
+        raise AssertionError(f"suite psnr: table {table}, the logs' last "
+                             f"lines {logs}, {rec['steps']} steps")
+    out["psnr"] = dict(rec, table=table)
+    # render: every frame trained, then the renders and the video
+    ret, rec = run("render", "--dataset", "davis", "--data_root",
+                   root / "data", "--output_root", root / "render",
+                   "--iterations", iters, "--scenes", scenes[0])
+    quality_launch_gate("suite render", rec["launches_by_stage"],
+                        rec["steps"], None)
+    video = ret["result"][scenes[0]]
+    n_video = video_frames(video)
+    views = len(list(Path(video).parent.glob("*.png")))
+    if not (views == SUITE["frames"] and n_video == views
+            and rec["steps"] == iters):
+        raise AssertionError(f"suite render: {views} views, {n_video} "
+                             f"frames in {video}, {rec['steps']} steps")
+    out["render"] = dict(rec, video=Path(video).name, video_frames=n_video)
+
+    # masks: stage 1 of (b)'s TINY weights on each scene's frames, then
+    # the table_mask protocol against the GT masks
+    def stage1():
+        model = tiny_trained(dev)
+        t1 = time.perf_counter()
+        for scene in scenes:
+            runner.run_scene(
+                str(root / "frames" / scene), str(root / "masks" / scene),
+                model, scene_graph="swin-2-noncyclic",
+                aligner_cfg=alignment.AlignerConfig(niter=50),
+                size=SUITE_STAGE1_SIZE, verbose=lambda *_: None,
+                device=dev)
+        return time.perf_counter() - t1
+    ret, rec = run("masks", "--dataset", "davis", "--data_root",
+                   root / "data", "--output_root", root / "masks",
+                   "--gt_dynamic_mask", root / "gt", "--scenes", *scenes,
+                   before=stage1)
+    mean_j = ret["result"]["summary"]["mean_J"]
+    recount = masks_recount(root / "masks", root / "gt", scenes)
+    if not (mean_j is not None and 0 <= mean_j <= 1 and mean_j == recount
+            and not any(rec["launches"].values())):
+        raise AssertionError(f"suite masks: mean_J {mean_j}, numpy "
+                             f"{recount}, launches {rec['launches']}")
+    rec["stage1_s"] = rec.pop("extra")
+    out["masks"] = dict(rec, per_scene=ret["result"]["per_scene"],
+                        summary=ret["result"]["summary"], recount=recount)
+    # pose: a synthetic tum sequence at full size, the .pth of the
+    # pipeline phase (DUST3R_LARGE_CONFIG)
+    seq = "rgbd_synthetic_suite"
+    gen, seq_dir = root / "pose_gen", root / "pose_data" / "tum" / seq
+    make_synthetic_stage1_dir(str(gen), n_frames=SUITE_POSE_FRAMES,
+                              height=HEIGHT, width=WIDTH, seed=SEED + 22)
+    (seq_dir / "rgb_50").mkdir(parents=True)
+    for f in sorted(gen.glob("frame_*.png")):
+        shutil.copy(f, seq_dir / "rgb_50")
+    shutil.copy(gen / "pred_traj.txt", seq_dir / "groundtruth_50.txt")
+    ret, rec = run("pose", "--dataset", "tum", "--data_root",
+                   root / "pose_data", "--output_root", root / "pose",
+                   "--ckpt", WORK / "das3r_random.pth", "--scenes", seq)
+    summary = ret["result"]
+    if not (summary["n_ok"] == summary["n_sequences"] == 1
+            and math.isfinite(summary["mean_ate"])
+            and not any(rec["launches"].values())):
+        raise AssertionError(f"suite pose: {summary}, launches "
+                             f"{rec['launches']}")
+    out["pose"] = dict(rec, frames=SUITE_POSE_FRAMES, height=HEIGHT,
+                       width=WIDTH, summary=summary)
+    out["card"] = ret["card"]
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def suite_child(out: str, dev: str) -> None:
+    """``suite_run`` in a process of its own (beside the quality phase's
+    children), its result written to ``out`` as JSON."""
+    Path(out).write_text(json.dumps(suite_run(dev)))
+
+
+CHILDREN: list = []     # every process spawned, stopped at exit
+
+
+def spawn(fn: str, *args) -> subprocess.Popen:
+    """``chip_smoke.<fn>(*args)`` in a fresh process, as a user runs a
+    script; its stdout (the trainer's progress) on our stderr, so that
+    stdout keeps the phase lines. ``spawned_at`` is its start on
+    ``time.perf_counter``."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.{fn}(*{[str(a) for a in args]!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=sys.stderr)
+    proc.spawned_at = time.perf_counter()
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    for child in CHILDREN:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def wait_children(children: dict, timeout: float) -> dict:
+    """Wait until every child of ``children`` has ended, each within
+    ``timeout`` seconds of its start; raise on a non-zero exit or the
+    time limit. Returns each child's seconds from start to end."""
+    ended = {}
+    while len(ended) < len(children):
+        for name, child in children.items():
+            if name not in ended and child.poll() is not None:
+                if child.returncode != 0:
+                    raise AssertionError(f"{name}: exit {child.returncode}")
+                ended[name] = time.perf_counter() - child.spawned_at
+            elif (name not in ended
+                  and time.perf_counter() - child.spawned_at > timeout):
+                raise AssertionError(f"{name}: past {timeout} s; ended: "
+                                     f"{ended}")
+        time.sleep(0.5)
+    return ended
+
+
+def quality_spawn(branch: str, dev) -> subprocess.Popen:
+    """The quality script's ``branch`` at its JAX record's recipe
+    (``QUALITY_PREDICTOR`` on (b)'s weights, ``QUALITY_GT``) in a process
+    of its own (``quality_child``)."""
     p, g = QUALITY_PREDICTOR, QUALITY_GT
     argv = {
         "predictor": [
@@ -4020,29 +4352,24 @@ def phase_quality(dev):
             "--width", str(g["width"]), "--iters", str(g["iters"]),
             "--pose_noise", str(g["pose_noise"]),
             "--noise_seed", str(g["noise_seed"]),
-            "--psnr_threshold", str(g["psnr_threshold"])]}
+            "--psnr_threshold", str(g["psnr_threshold"])]}[branch]
+    return spawn("quality_child", branch, WORK / f"quality_{branch}.json",
+                 dev, *argv)
+
+
+def phase_quality(children: dict):
+    """The end-to-end quality path, ``scripts/torch_quality_e2e.py``, at
+    the JAX records' recipes, and the suite (``suite_run``): each in a
+    fresh process, as a user runs the script, ``phase_stage1_train``
+    started them (the gt branch beside (b), the predictor branch on the
+    TINY weights (b) trained and saved, and the suite, beside (c) and
+    (e)); their host-bound steps share the card, so their seconds are not
+    the script's alone. Waits for them, holds each at its bars and
+    returns the quality runs' launches and the suite's by mode."""
     t0 = time.perf_counter()
-    children = {}
-    for branch, args in argv.items():
-        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
-                f"import chip_smoke; chip_smoke.quality_child("
-                f"{branch!r}, {str(WORK / f'quality_{branch}.json')!r}, "
-                f"{str(dev)!r}, *{args!r})")
-        # the trainer's progress lines go to stderr: stdout keeps the
-        # phase lines
-        children[branch] = subprocess.Popen([sys.executable, "-c", code],
-                                            cwd=ROOT, stdout=sys.stderr)
-    try:
-        for branch, child in children.items():
-            if child.wait(timeout=QUALITY_TIMEOUT) != 0:
-                raise AssertionError(f"quality {branch}: exit "
-                                     f"{child.returncode}")
-    finally:
-        for child in children.values():
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-    seconds = time.perf_counter() - t0
+    ended = wait_children(children, QUALITY_TIMEOUT)
+    waited = time.perf_counter() - t0
+    argv = ("predictor", "gt")
     runs, launches = {}, {}
     for branch in argv:
         got = json.loads((WORK / f"quality_{branch}.json").read_text())
@@ -4067,9 +4394,12 @@ def phase_quality(dev):
                              f"{detail['ate_final']} (want "
                              f"{JAX_QUALITY['gt']['ate_init']} -> no "
                              f"higher)")
-    emit("quality", seconds=seconds, side_by_side=True, predictor=pred,
-         gt=gt)
-    return launches
+    emit("quality", waited_s=waited, side_by_side=True, predictor=pred,
+         gt=gt, child_s={k: ended[k] for k in argv})
+    suite = json.loads((WORK / "suite.json").read_text())
+    emit("suite", seconds=ended["suite"], beside_quality=True, **suite)
+    return launches, {mode: suite[mode]["launches"]
+                      for mode in ("psnr", "render", "masks", "pose")}
 
 
 def main() -> int:
@@ -4139,11 +4469,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipe = phase_pipeline(sd, "cuda")
         torch.cuda.empty_cache()
-        s1_train = phase_stage1_train(sd, "cuda")
+        s1_train, children = phase_stage1_train(sd, "cuda")
         del sd
         torch.cuda.empty_cache()
-        quality = phase_quality("cuda")
+        quality, suite = phase_quality(children)
     finally:
+        stop_children()
         shutil.rmtree(WORK, ignore_errors=True)
     # serving runs the entry-stream forward kernels once per view and no
     # other kernel
@@ -4169,6 +4500,7 @@ def main() -> int:
             f"quality_predictor_{QUALITY_PREDICTOR['iters']}_iters":
                 quality["predictor"][k],
             f"quality_gt_{QUALITY_GT['iters']}_iters": quality["gt"][k],
+            **{f"suite_{mode}": n[k] for mode, n in suite.items()},
             f"sharded_2_ranks_{SHARDED_STEPS}_steps_x2": sharded.get(k, 0),
             f"sharded_window_2_ranks_{SHARDED_STEPS}_steps":
                 sharded_win.get(k, 0),

@@ -59,8 +59,16 @@ def load_gaussians_ply(path: str, max_sh_degree: int = 3, device=None):
 
 
 def images_to_video(image_paths, out_path: str, fps: int = 15) -> str:
-    """Encode frames to an mp4 with a system ffmpeg, or to an animated GIF
-    when there is none. Returns the path actually written."""
+    """Encode frames to an mp4 (imageio with its ffmpeg plugin, or a
+    system ffmpeg), or to an animated GIF when there is no encoder.
+    Returns the path actually written."""
+    try:
+        import imageio.v2 as imageio
+        imageio.mimwrite(out_path, [imageio.imread(p) for p in image_paths],
+                         fps=fps)
+        return out_path
+    except Exception:       # no imageio, or no mp4 plugin: as JAX's tool
+        pass
     if shutil.which("ffmpeg"):
         list_file = out_path + ".frames.txt"
         with open(list_file, "w") as f:

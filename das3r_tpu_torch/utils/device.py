@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -33,3 +35,16 @@ def on_device(x, device, dtype=None):
     if isinstance(x, np.ndarray):
         x = np.array(x)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def card_line() -> str | None:
+    """The card's name and power limit as ``nvidia-smi`` gives them (None
+    where it cannot be run): the line every measurement is reported
+    beside."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=30).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None

@@ -32,7 +32,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -40,18 +39,9 @@ from pathlib import Path
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+from das3r_tpu_torch.utils.device import card_line  # noqa: E402
+
 PSNR_BAR_DB = 30.0
-
-
-def card_line() -> str | None:
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=30).stdout.strip() or None
-    except (OSError, subprocess.SubprocessError):
-        return None
 
 
 def predictor_stage1(args, gen: str, stage1_dir: str) -> dict:
