@@ -1,0 +1,5 @@
+"""Share of the traced orbit window with no operation on the device, in %."""
+
+
+def read(ctx):
+    return ctx.idle_pct()
