@@ -534,26 +534,29 @@ def prefix_bytes(es, need, row_bytes):
     return slots.numel(), slots.numel() * 4 + rows * row_bytes
 
 
-def kernel_counters():
-    from das3r_tpu_torch.ops.splat import binning, entry_blend, window_blend
-    return {"extract_chunks": binning.extract_chunks,
-            "blend_forward": entry_blend.blend_forward,
-            "blend_backward": entry_blend.blend_backward,
-            "blend_forward_bf16": entry_blend.blend_forward_bf16,
-            "blend_backward_bf16": entry_blend.blend_backward_bf16,
-            "extract_windows": binning.extract_windows,
-            "window_blend_forward": window_blend.window_forward,
-            "window_blend_backward": window_blend.window_backward}
+KERNELS = ("extract_chunks", "blend_forward", "blend_backward",
+           "blend_forward_bf16", "blend_backward_bf16", "extract_windows",
+           "window_blend_forward", "window_blend_backward")
+
+
+def kernel_launches() -> dict:
+    """{kernel: launches so far} of every kernel (the program's
+    ``launch/<kernel>`` counters)."""
+    from das3r_tpu_torch.utils import trace
+    got = trace.counters("launch/")
+    return {k: got.get("launch/" + k, 0) for k in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    """{kernel: launches} since ``before`` (a ``kernel_launches()``)."""
+    return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
 def run_counted(fn):
-    """(fn(), {kernel: launches during the call}): every count set to 0
-    just before, read just after."""
-    counted = kernel_counters()
-    for f in counted.values():
-        f.launches = 0
+    """(fn(), {kernel: launches during the call})."""
+    before = kernel_launches()
     out = fn()
-    return out, {name: f.launches for name, f in counted.items()}
+    return out, launches_since(before)
 
 
 def phase_device():
@@ -975,14 +978,10 @@ def phase_main(scene: Path, model: Path, device=None):
     from PIL import Image
     from das3r_tpu_torch.eval import render_tool
 
-    counted = kernel_counters()
     t0 = time.perf_counter()
     stats: list[dict] = []
-    for fn in counted.values():
-        fn.launches = 0
-    _, paths = render_tool.render_sets(str(scene), str(model), iteration=1,
-                                       stats=stats, device=device)
-    launches = {name: fn.launches for name, fn in counted.items()}
+    (_, paths), launches = run_counted(lambda: render_tool.render_sets(
+        str(scene), str(model), iteration=1, stats=stats, device=device))
     seconds = time.perf_counter() - t0
 
     if len(paths) != N_FRAMES:
@@ -1125,9 +1124,7 @@ def phase_train(data, settings, dev, phase: str = "train"):
             float(data.fovy[uid]), bg, settings, cfg, track_stats=True)
 
     setup_s = time.perf_counter() - t0
-    counted = kernel_counters()
-    for fn in counted.values():
-        fn.launches = 0
+    before = kernel_launches()
     marks, metrics = [], []
     for i in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1138,7 +1135,7 @@ def phase_train(data, settings, dev, phase: str = "train"):
         marks.append((start, end))
         metrics.append(m)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = launches_since(before)
     ms = [a.elapsed_time(b) for a, b in marks]
     losses = [float(m.loss) for m in metrics]
 
@@ -1255,15 +1252,13 @@ class _Timed:
     def __enter__(self):
         import torch
         self.orig = orig = getattr(self.module, self.name)
-        counted = kernel_counters()
 
         def wrapped(*args, **kw):
-            before = {k: f.launches for k, f in counted.items()}
+            before = kernel_launches()
             t0 = time.perf_counter()
             out = orig(*args, **kw)
             self.calls += 1
-            self.launches.update({k: f.launches - before[k]
-                                  for k, f in counted.items()})
+            self.launches.update(launches_since(before))
             if not self.sync:
                 return out
             if torch.cuda.is_available():
@@ -1332,8 +1327,8 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
     stream = (es.rank, es.astart, es.count, settings)
 
     # --- B-bf16 --------------------------------------------------------
-    cpre, tfinal = eb.blend_forward_bf16(t16, *stream)
-    cpre_n, tfinal_n, n_last = eb.blend_forward_bf16(t16, *stream, True)
+    cpre, tfinal = eb.blend_forward(t16, *stream)
+    cpre_n, tfinal_n, n_last = eb.blend_forward(t16, *stream, True)
     plain = eb.blend_forward_plain(dec, *stream)
     torch.cuda.synchronize()
     err = max(float((cpre - plain.cpre).abs().max()),
@@ -1389,8 +1384,8 @@ def bf16_table_view(prep, settings, dev) -> list[dict]:
         np.float32), device=dev)
     g_tfinal = torch.as_tensor(gen.normal(size=tuple(tfinal.shape)).astype(
         np.float32), device=dev)
-    got = eb.blend_backward_bf16(t16, *stream, tfinal_n, n_last, g_cpre,
-                                 g_tfinal)
+    got = eb.blend_backward(t16, *stream, tfinal_n, n_last, g_cpre,
+                            g_tfinal)
     want = eb.blend_backward_plain(dec, *stream, plain.tfinal, plain.tin,
                                    g_cpre, g_tfinal).g_table
     torch.cuda.synchronize()
@@ -1458,13 +1453,13 @@ def bf16_ranges(bundle, dev) -> dict:
                       prep.opacity[:, None]], 1)
     t16 = eb.encode_bf16_table(torch.cat([attr[es.order], torch.zeros_like(
         attr[:1])]))
-    whole = eb.blend_forward_bf16(t16, es.rank, es.astart, es.count, s)
+    whole = eb.blend_forward(t16, es.rank, es.astart, es.count, s)
     t_loc = range_tiles(s, 2)
     rows = [[], []]
     for i in range(2):
         e = binning.entry_stream_from_keys(ks, s, n, range_capacity(s, n),
                                            i * t_loc, t_loc)
-        for k, x in enumerate(eb.blend_forward_bf16(
+        for k, x in enumerate(eb.blend_forward(
                 t16, e.rank, e.astart, e.count, s, tile0=i * t_loc,
                 n_tiles_out=t_loc)):
             rows[k].append(x)
@@ -1985,9 +1980,7 @@ def sharded_rank(rank: int, work: str, device: str) -> None:
             step = sharded.make_sharded_train_step(
                 mesh, settings, cfg, gauss_axis=gauss_axis, device=dev)
             losses, ms, comm, first = [], [], [], None
-            counted = kernel_counters()
-            for f in counted.values():
-                f.launches = 0
+            before = kernel_launches()
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
             for k in range(SHARDED_STEPS):
@@ -2007,8 +2000,7 @@ def sharded_rank(rank: int, work: str, device: str) -> None:
                 if first is None:
                     first = (g_p, g_q)
             return dict(state=state, first=first, losses=losses, ms=ms,
-                        comm=comm, launches={name: f.launches for name, f
-                                             in counted.items()},
+                        comm=comm, launches=launches_since(before),
                         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30
                         if on_card else None)
 
@@ -2680,19 +2672,18 @@ def phase_gui(model: Path, dev):
         return out.cpre, out.tfinal
 
     parity, panel_ms = {}, {}
-    counters = kernel_counters()
+    kernel_a, kernel_b = binning.extract_chunks, entry_blend.blend_forward
     for mode in ("rgb", "confidence", "no_soft"):
         img = scene.render_image(orbit, mode)
-        for f in counters.values():
-            f.launches = 0
+        before = kernel_launches()
         binning.extract_chunks = plain_chunks
         entry_blend.blend_forward = plain_blend
         try:
             plain = scene.render_image(orbit, mode)
         finally:
-            binning.extract_chunks = counters["extract_chunks"]
-            entry_blend.blend_forward = counters["blend_forward"]
-        counts = {name: f.launches for name, f in counters.items()}
+            binning.extract_chunks = kernel_a
+            entry_blend.blend_forward = kernel_b
+        counts = launches_since(before)
         torch.cuda.synchronize()
         err = float((img - plain).abs().max())
         if (any(counts.values()) or not torch.isfinite(img).all()

@@ -21,6 +21,7 @@ from torch import nn
 from das3r_tpu_torch.models.croco.blocks import (Block, DecoderBlock,
                                                  PatchEmbed)
 from das3r_tpu_torch.models.croco.dpt import DPTHead, LinearHead
+from das3r_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +109,13 @@ class AsymmetricCroCo3D(nn.Module):
         back before patchifying, so the patches and the RoPE positions see
         the true orientation.
         """
-        if portrait:
-            img = img.transpose(-1, -2)
-        x, pos = self.patch_embed(img)
-        for blk in self.enc_blocks:
-            x = blk(x, pos)
-        return self.enc_norm(x.to(torch.float32)), pos
+        with trace.span("das3r::encode"):
+            if portrait:
+                img = img.transpose(-1, -2)
+            x, pos = self.patch_embed(img)
+            for blk in self.enc_blocks:
+                x = blk(x, pos)
+            return self.enc_norm(x.to(torch.float32)), pos
 
     def _decode(self, f1, pos1, f2, pos2):
         """Two 13-entry lists [enc_out, dec1..dec12], one per view
@@ -143,28 +145,31 @@ class AsymmetricCroCo3D(nn.Module):
         """
         if img_h2 is None:
             img_h2, img_w2 = img_h, img_w
-        dec1, dec2 = self._decode(f1, pos1, f2, pos2)
-        # heads take float32 tokens (model.py:217-222)
-        dec1 = [t.to(torch.float32) for t in dec1]
-        dec2 = [t.to(torch.float32) for t in dec2]
-        if stop_trunk_grad:
-            dec1 = [t.detach() for t in dec1]
-            dec2 = [t.detach() for t in dec2]
+        with trace.span("das3r::decode"):
+            dec1, dec2 = self._decode(f1, pos1, f2, pos2)
+            # heads take float32 tokens (model.py:217-222)
+            dec1 = [t.to(torch.float32) for t in dec1]
+            dec2 = [t.to(torch.float32) for t in dec2]
+            if stop_trunk_grad:
+                dec1 = [t.detach() for t in dec1]
+                dec2 = [t.detach() for t in dec2]
 
-        c = self.cfg
-        out1 = self.downstream_head1(dec1, img_h, img_w)
-        out2 = self.downstream_head2(dec2, img_h2, img_w2)
-        m1 = self.downstream_head_dynamic_mask1(dec1, img_h, img_w)
-        m2 = self.downstream_head_dynamic_mask2(dec2, img_h2, img_w2)
-        res1 = dict(
-            pts3d=reg_dense_depth_exp(out1[..., :3]),
-            conf=reg_dense_conf_exp(out1[..., 3], c.conf_vmin),
-            dynamic_mask=torch.sigmoid(m1[..., 0]))
-        res2 = dict(
-            pts3d_in_other_view=reg_dense_depth_exp(out2[..., :3]),
-            conf=reg_dense_conf_exp(out2[..., 3], c.conf_vmin),
-            dynamic_mask=torch.sigmoid(m2[..., 0]))
-        return res1, res2
+            c = self.cfg
+            with trace.span("das3r::heads"):
+                out1 = self.downstream_head1(dec1, img_h, img_w)
+                out2 = self.downstream_head2(dec2, img_h2, img_w2)
+                m1 = self.downstream_head_dynamic_mask1(dec1, img_h, img_w)
+                m2 = self.downstream_head_dynamic_mask2(dec2, img_h2,
+                                                        img_w2)
+            res1 = dict(
+                pts3d=reg_dense_depth_exp(out1[..., :3]),
+                conf=reg_dense_conf_exp(out1[..., 3], c.conf_vmin),
+                dynamic_mask=torch.sigmoid(m1[..., 0]))
+            res2 = dict(
+                pts3d_in_other_view=reg_dense_depth_exp(out2[..., :3]),
+                conf=reg_dense_conf_exp(out2[..., 3], c.conf_vmin),
+                dynamic_mask=torch.sigmoid(m2[..., 0]))
+            return res1, res2
 
     def forward(self, img1, img2, stop_trunk_grad: bool = True,
                 portrait1: bool = False, portrait2: bool = False,

@@ -39,11 +39,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from das3r_tpu_torch.ops.splat import kernels
 from das3r_tpu_torch.ops.splat.preprocess import Preprocessed
 from das3r_tpu_torch.ops.splat.settings import RasterSettings
+from das3r_tpu_torch.utils import trace
 
 CHUNK = 128   # entries per stream chunk; each chunk belongs to one tile
 
@@ -121,8 +121,10 @@ def _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, d0: int,
     tile = (ty * s.tiles_x + tx).to(torch.int64)
     # A Gaussian touches a tile at most once, so the key is unique and its
     # order is tile-major, depth-minor. Boolean indexing keeps row-major
-    # order.
-    return ((tile << nbits) | rank[:, None])[valid]
+    # order; it waits for the device to count the live keys.
+    keys = (tile << nbits) | rank[:, None]
+    with trace.sync("emit_keys"):
+        return keys[valid]
 
 
 def _sorted_key_stream(prep: Preprocessed,
@@ -186,8 +188,10 @@ def _sorted_key_stream(prep: Preprocessed,
 
     entry_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     if s.max_total_entries is not None:
-        entry_overflow = torch.clamp_min(
-            torch.tensor(live.numel() - s.max_total_entries, device=dev), 0)
+        with trace.sync("entry_cap_to_device"):
+            over = torch.tensor(live.numel() - s.max_total_entries,
+                                device=dev)
+        entry_overflow = torch.clamp_min(over, 0)
         # the JAX compaction buffer of the full-width table: the farthest
         # Gaussians' entries beyond the cap are dropped (its keys are in
         # depth-major order; the split table's are not, and JAX's split
@@ -276,11 +280,7 @@ def extract_chunks(keys: torch.Tensor, src0: torch.Tensor,
     kernels.launch("extract_chunks", keys.data_ptr(), src0.data_ptr(),
                    nlive.data_ptr(), src0.shape[0], nbits, n,
                    rank.data_ptr())
-    extract_chunks.launches += 1
     return rank
-
-
-extract_chunks.launches = 0
 
 
 class ChunkLayout(NamedTuple):
@@ -316,7 +316,8 @@ def chunk_layout(keys: torch.Tensor, nbits: int, settings: RasterSettings,
     count_raw = bounds[1:] - start                           # uncapped
     ccount = (count_raw + CHUNK - 1) // CHUNK * CHUNK
     astart = torch.cumsum(ccount, 0) - ccount
-    total = int(ccount.sum())
+    with trace.sync("stream_total"):
+        total = int(ccount.sum())
     if e_al is None:
         e_al = max(total, CHUNK)
     # Tiles whose aligned segment crosses the stream capacity lose their
@@ -373,11 +374,9 @@ def bin_entry_stream(prep: Preprocessed,
     n = prep.depth.shape[0]
     if not entry_stream_supported(n, settings):
         raise ValueError("(n_tiles + 1) << ceil(log2 N) exceeds the int64 key")
-    with record_function("das3r::sorted_key_stream"):
-        ks = _sorted_key_stream(prep, settings)
-    with record_function("das3r::entry_stream_from_keys"):
-        return entry_stream_from_keys(ks, settings, n,
-                                      entry_stream_cap(settings, n))
+    ks = _sorted_key_stream(prep, settings)
+    return entry_stream_from_keys(ks, settings, n,
+                                  entry_stream_cap(settings, n))
 
 
 # ---------------------------------------------------------------------------
@@ -452,11 +451,7 @@ def extract_windows(keys: torch.Tensor, start: torch.Tensor, k_cap: int,
     kernels.launch("extract_windows", keys.data_ptr(), keys.numel(),
                    start.data_ptr(), start.shape[0], k_cap, nbits, n,
                    rank.data_ptr())
-    extract_windows.launches += 1
     return rank
-
-
-extract_windows.launches = 0
 
 
 def _windows(sorted_keys: torch.Tensor, nbits: int, n: int, n_tiles: int,
@@ -596,17 +591,14 @@ def bin_gaussians(prep: Preprocessed, settings: RasterSettings) -> TileBins:
     quantized depth (``_bin_quantized_depth``)."""
     s = settings
     if uses_quantized_depth(s):
-        with record_function("das3r::bin_quantized_depth"):
-            return _bin_quantized_depth(prep, s)
+        return _bin_quantized_depth(prep, s)
     n = prep.depth.shape[0]
     if not entry_stream_supported(n, s):
         raise ValueError("(n_tiles + 1) << ceil(log2 N) exceeds the int64 key")
-    with record_function("das3r::sorted_key_stream"):
-        ks = _sorted_key_stream(prep, s)
-    with record_function("das3r::windows"):
-        rank, delta, count, full_count = _windows(
-            ks.sorted_packed, ks.nbits, n, s.n_tiles, s.max_per_tile,
-            s.use_dma_windows)
+    ks = _sorted_key_stream(prep, s)
+    rank, delta, count, full_count = _windows(
+        ks.sorted_packed, ks.nbits, n, s.n_tiles, s.max_per_tile,
+        s.use_dma_windows)
     return TileBins(rank=rank, delta=delta, order=ks.order, count=count,
                     full_count=full_count, dup_overflow=ks.dup_overflow,
                     entry_overflow=ks.entry_overflow,

@@ -37,8 +37,10 @@ With ``settings.table_bf16`` the blend encodes the f32 table once, at N
 scale, into JAX's [N+1, 11] bf16 layout (``encode_bf16_table``) and blends
 the decoded values (``decode_bf16_table``): mean2d as a bf16 hi + lo pair,
 the rest as single bf16. Both directions take the encoded table: the
-kernels decode each row where they read it, the plain versions decode it
-whole first. The gradient is that of the f32 table, computed from the
+kernels' bf16 forms decode each row where they read it (their launches
+count under ``launch/blend_forward_bf16`` and
+``launch/blend_backward_bf16``), the plain versions decode it whole
+first. The gradient is that of the f32 table, computed from the
 decoded values: straight through the encode, as the JAX package's
 ``custom_vjp`` gives it.
 """
@@ -47,7 +49,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from das3r_tpu_torch.ops.splat import kernels
 from das3r_tpu_torch.ops.splat.binning import CHUNK, EntryStream
@@ -360,32 +361,16 @@ def blend_forward(table: torch.Tensor, rank: torch.Tensor,
     tfinal = torch.empty(n_tiles, 1, P, device=table.device)
     n_last = (torch.empty(n_tiles, P, dtype=torch.int32, device=table.device)
               if for_backward else None)
-    if table.dtype == torch.bfloat16:
-        name, counted = "blend_forward_bf16", blend_forward_bf16
-    else:
-        name, counted = "blend_forward", blend_forward
+    name = ("blend_forward_bf16" if table.dtype == torch.bfloat16
+            else "blend_forward")
     kernels.launch(name, table.data_ptr(), rank.data_ptr(),
                    astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
                    s.tiles_x, s.alpha_clip, s.alpha_floor, s.transmittance_eps,
                    cpre.data_ptr(), tfinal.data_ptr(),
                    None if n_last is None else n_last.data_ptr())
-    counted.launches += 1
     if for_backward:
         return cpre, tfinal, n_last
     return cpre, tfinal
-
-
-blend_forward.launches = 0
-
-
-def blend_forward_bf16(*args, **kwargs):
-    """``blend_forward`` of a [M, 11] bf16 table (``encode_bf16_table``):
-    the table_bf16 form of kernel B, which decodes each row where it
-    stages it (csrc/entry_table.cuh); its launches are counted here."""
-    return blend_forward(*args, **kwargs)
-
-
-blend_forward_bf16.launches = 0
 
 
 def blend_backward(table: torch.Tensor, rank: torch.Tensor,
@@ -433,31 +418,14 @@ def blend_backward(table: torch.Tensor, rank: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     g_table = torch.zeros(table.shape[0], N_ATTR, device=table.device)
-    if table.dtype == torch.bfloat16:
-        name, counted = "blend_backward_bf16", blend_backward_bf16
-    else:
-        name, counted = "blend_backward", blend_backward
+    name = ("blend_backward_bf16" if table.dtype == torch.bfloat16
+            else "blend_backward")
     kernels.launch(name, table.data_ptr(), rank.data_ptr(),
                    astart.data_ptr(), count.data_ptr(), n_tiles, tile0,
                    s.tiles_x, s.alpha_clip, s.alpha_floor, tfinal.data_ptr(),
                    n_last.data_ptr(), g_cpre.data_ptr(), g_tfinal.data_ptr(),
                    g_table.data_ptr())
-    counted.launches += 1
     return g_table
-
-
-blend_backward.launches = 0
-
-
-def blend_backward_bf16(*args, **kwargs):
-    """``blend_backward`` of a [M, 11] bf16 table: the table_bf16 form of
-    kernel C (decoded at its reads, csrc/entry_table.cuh), giving the
-    [M, 9] f32 gradient of the decoded values; its launches are counted
-    here."""
-    return blend_backward(*args, **kwargs)
-
-
-blend_backward_bf16.launches = 0
 
 
 class _BlendEntryStream(torch.autograd.Function):
@@ -479,11 +447,9 @@ class _BlendEntryStream(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cpre, g_tfinal):
         table, rank, astart, count, tfinal, n_last = ctx.saved_tensors
-        with record_function("das3r::blend_backward"):
-            g_table = blend_backward(table, rank, astart, count,
-                                     ctx.settings, tfinal, n_last,
-                                     g_cpre.contiguous(),
-                                     g_tfinal.contiguous(), **ctx.rng)
+        g_table = blend_backward(table, rank, astart, count, ctx.settings,
+                                 tfinal, n_last, g_cpre.contiguous(),
+                                 g_tfinal.contiguous(), **ctx.rng)
         return g_table, None, None, None, None, None, None
 
 

@@ -11,7 +11,8 @@ source or header is rebuilt and a stale library never loads.
 
 Every launch function takes the device pointers, the sizes and the CUDA
 stream, launches on that stream without synchronising, and returns
-``cudaGetLastError()``; ``launch`` raises when it is not 0. A kernel is
+``cudaGetLastError()``; ``launch`` raises when it is not 0 and counts each
+launch under ``launch/<name>`` (``utils/trace.counters()``). A kernel is
 named by its launch function; a source may define more than one
 (``VARIANTS``: the bf16-table forms of B and C live in the sources of their
 f32 forms).
@@ -27,6 +28,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from das3r_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -143,6 +146,7 @@ def launch(name: str, *args) -> None:
     err = _launchers[name](*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    trace.count("launch/" + name)
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,

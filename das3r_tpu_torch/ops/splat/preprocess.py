@@ -13,6 +13,7 @@ import torch
 
 from das3r_tpu_torch.ops.splat.settings import RasterSettings
 from das3r_tpu_torch.utils import sh as sh_lib
+from das3r_tpu_torch.utils import trace
 
 
 class Preprocessed(NamedTuple):
@@ -174,8 +175,9 @@ def preprocess(
 
     # The CUDA getRect formula verbatim, including its quirk of dropping
     # the last tile when mu + r lands within 1px past a tile boundary.
-    tgrid = torch.tensor([s.tiles_x, s.tiles_y], dtype=torch.int32,
-                         device=dev)
+    with trace.sync("tile_grid_to_device"):
+        tgrid = torch.tensor([s.tiles_x, s.tiles_y], dtype=torch.int32,
+                             device=dev)
     zero = torch.zeros_like(tgrid)
     mean2d_sg = mean2d.detach()
     rect_min = torch.clamp(

@@ -40,12 +40,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from das3r_tpu_torch.ops.splat import binning, blend, entry_blend, window_blend
 from das3r_tpu_torch.ops.splat import preprocess as prep_mod
 from das3r_tpu_torch.ops.splat.settings import RasterSettings
 from das3r_tpu_torch.parallel import collectives
+from das3r_tpu_torch.utils import trace
 from das3r_tpu_torch.utils.device import on_device, resolve_device
 
 # Candidate light widths of the split duplication table; ``dup_hist``
@@ -137,7 +137,7 @@ def rasterize(
         tan_fovx, tan_fovy = on(tan_fovx), on(tan_fovy)
     means3d = on(means3d)
     # The named ranges are the layers of a torch.profiler breakdown.
-    with record_function("das3r::preprocess"):
+    with trace.span("das3r::preprocess"):
         p = prep_mod.preprocess(
             means3d, on(opacities), s,
             viewmatrix=on(viewmatrix), projmatrix=on(projmatrix),
@@ -147,23 +147,22 @@ def rasterize(
             mean2d_offset=on(mean2d_offset), tan_fovx=tan_fovx,
             tan_fovy=tan_fovy)
     if collectives.size(gauss_group) > 1:
-        with record_function("das3r::gather_gaussians"):
-            p = gather_preprocessed(p, gauss_group)
+        p = gather_preprocessed(p, gauss_group)
     if not s.entry_stream:
         return _rasterize_windows(p, s, on(bg), tile_group)
     if collectives.size(tile_group) > 1:
         return _entry_stream_sharded(p, s, on(bg), tile_group)
-    with record_function("das3r::bin_entry_stream"):
+    with trace.span("das3r::bin_entry_stream"):
         es = binning.bin_entry_stream(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
-    with record_function("das3r::blend"):
+    with trace.span("das3r::blend"):
         attr_mat = torch.cat([p.mean2d, p.conic, p.color,
                               p.opacity[:, None]], 1)
         # depth-rank-ordered table + zero sentinel row for stream pad slots
         table = torch.cat([permute_rows(attr_mat, es.order),
                            torch.zeros_like(attr_mat[:1])])
         cpre, tfinal = entry_blend.render_tiles(table.contiguous(), es, s)
-    with record_function("das3r::assemble"):
+    with trace.span("das3r::assemble"):
         tiles = cpre + tfinal * on(bg).reshape(1, 3, 1)       # [T, 3, P]
         img = blend.assemble_image(tiles.transpose(1, 2), s)
         mtt, hrows, hist = _dup_telemetry(p, s)
@@ -220,10 +219,10 @@ def _rasterize_windows(p: prep_mod.Preprocessed, s: RasterSettings, bg,
     own range."""
     n_ranges, index = collectives.size(tile_group), collectives.index(
         tile_group)
-    with record_function("das3r::bin_gaussians"):
+    with trace.span("das3r::bin_gaussians"):
         bins = binning.bin_gaussians(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
-    with record_function("das3r::blend"):
+    with trace.span("das3r::blend"):
         attr_mat = torch.cat([p.mean2d, p.conic, p.color,
                               p.opacity[:, None]], 1)
         # depth-rank order at N scale, then the range's gather by rank
@@ -231,10 +230,8 @@ def _rasterize_windows(p: prep_mod.Preprocessed, s: RasterSettings, bg,
         attr_rank, bg = collectives.sum_grads(tile_group, "window_grad",
                                               attr_rank, bg)
         colors = window_range(attr_rank, bins, bg, s, n_ranges, index)
-    with record_function("das3r::gather_tiles"):
-        tiles = collectives.gather_rows(colors, tile_group,
-                                        "tiles")[:s.n_tiles]
-    with record_function("das3r::assemble"):
+    tiles = collectives.gather_rows(colors, tile_group, "tiles")[:s.n_tiles]
+    with trace.span("das3r::assemble"):
         img = blend.assemble_image(tiles, s)
         mtt, hrows, hist = _dup_telemetry(p, s)
     aux = RasterAux(
@@ -329,24 +326,23 @@ def _entry_stream_sharded(p: prep_mod.Preprocessed, s: RasterSettings, bg,
     n = p.depth.shape[0]
     n_ranges, index = collectives.size(tile_group), collectives.index(
         tile_group)
-    with record_function("das3r::bin_entry_stream"):
+    with trace.span("das3r::bin_entry_stream"):
         ks = binning._sorted_key_stream(
             prep_mod.Preprocessed(*(x.detach() for x in p)), s)
-    with record_function("das3r::blend"):
+    with trace.span("das3r::blend"):
         attr_mat = torch.cat([p.mean2d, p.conic, p.color,
                               p.opacity[:, None]], 1)
         table = torch.cat([permute_rows(attr_mat, ks.order),
                            torch.zeros_like(attr_mat[:1])])
         (table,) = collectives.sum_grads(tile_group, "table_grad", table)
         cpre, tfinal, es = render_range(table, ks, s, n, n_ranges, index)
-    with record_function("das3r::gather_tiles"):
-        rows = collectives.gather_rows(torch.cat([cpre, tfinal], 1),
-                                       tile_group, "tiles")[:s.n_tiles]
-        drop = es.entry_overflow - ks.entry_overflow
-        counts = collectives.gather_blocks(
-            torch.cat([es.count.to(torch.int64), drop.reshape(1)]),
-            tile_group, "counts").reshape(n_ranges, -1)
-    with record_function("das3r::assemble"):
+    rows = collectives.gather_rows(torch.cat([cpre, tfinal], 1),
+                                   tile_group, "tiles")[:s.n_tiles]
+    drop = es.entry_overflow - ks.entry_overflow
+    counts = collectives.gather_blocks(
+        torch.cat([es.count.to(torch.int64), drop.reshape(1)]),
+        tile_group, "counts").reshape(n_ranges, -1)
+    with trace.span("das3r::assemble"):
         tiles = rows[:, :3] + rows[:, 3:] * bg.reshape(1, 3, 1)
         img = blend.assemble_image(tiles.transpose(1, 2), s)
         mtt, hrows, hist = _dup_telemetry(p, s)

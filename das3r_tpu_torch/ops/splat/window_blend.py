@@ -33,7 +33,6 @@ Attribute rows (axis 1 of ``attrs``):
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from das3r_tpu_torch.ops.splat import kernels
 from das3r_tpu_torch.ops.splat.entry_blend import (
@@ -186,11 +185,7 @@ def window_forward(attrs: torch.Tensor, counts: torch.Tensor,
                    n_tiles, K, chunk, tile0, s.tiles_x, s.alpha_clip,
                    s.alpha_floor, s.transmittance_eps, colors.data_ptr(),
                    tfinal.data_ptr(), tin.data_ptr())
-    window_forward.launches += 1
     return colors, tfinal, tin
-
-
-window_forward.launches = 0
 
 
 def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
@@ -230,11 +225,7 @@ def window_backward(attrs: torch.Tensor, counts: torch.Tensor,
                    g_colors.data_ptr(), tfinal.data_ptr(), tin.data_ptr(),
                    n_tiles, K, chunk, tile0, s.tiles_x, s.alpha_clip,
                    s.alpha_floor, s.transmittance_eps, g_attrs.data_ptr())
-    window_backward.launches += 1
     return g_attrs
-
-
-window_backward.launches = 0
 
 
 class _BlendTilesWindow(torch.autograd.Function):
@@ -251,14 +242,12 @@ class _BlendTilesWindow(torch.autograd.Function):
         attrs, counts, deltas, bg, tfinal, tin = ctx.saved_tensors
         g_colors = g_colors.contiguous()
         g_attrs = g_bg = None
-        with record_function("das3r::window_backward"):
-            if ctx.needs_input_grad[0]:
-                g_attrs = window_backward(attrs, counts, deltas, bg,
-                                          g_colors, tfinal, tin,
-                                          ctx.settings, ctx.tile0)
-            if ctx.needs_input_grad[3]:
-                # dL/dbg = sum over pixels of g * T_final
-                g_bg = (g_colors * tfinal[:, :, None]).sum((0, 1))
+        if ctx.needs_input_grad[0]:
+            g_attrs = window_backward(attrs, counts, deltas, bg, g_colors,
+                                      tfinal, tin, ctx.settings, ctx.tile0)
+        if ctx.needs_input_grad[3]:
+            # dL/dbg = sum over pixels of g * T_final
+            g_bg = (g_colors * tfinal[:, :, None]).sum((0, 1))
         return g_attrs, None, None, g_bg, None, None
 
 

@@ -16,6 +16,7 @@ import torch
 
 from das3r_tpu_torch.models.croco.dust3r import (AsymmetricCroCo3D,
                                                  transposed_result)
+from das3r_tpu_torch.utils import trace
 
 # ImgNorm: the stage-1 model takes images normalized to mean .5 / std .5
 # (reference dust3r/utils/image.py ImgNorm)
@@ -83,26 +84,31 @@ def run_pairs(
     dev = next(model.parameters()).device
     F, _, H, W = images01.shape
     th, tw = (W, H) if portrait else (H, W)     # true orientation
-    imgs = torch.as_tensor(normalize_images(images01), dtype=torch.float32,
-                           device=dev)
-    feats, poss = encode_frames(model, imgs, encode_batch, portrait)
+    with trace.span("das3r::run_pairs", frames=F, pairs=len(edges)):
+        with trace.sync("frames_to_device"):
+            imgs = torch.as_tensor(normalize_images(images01),
+                                   dtype=torch.float32, device=dev)
+        feats, poss = encode_frames(model, imgs, encode_batch, portrait)
 
-    ei = torch.as_tensor([i for i, _ in edges], device=dev)
-    ej = torch.as_tensor([j for _, j in edges], device=dev)
-    out = {k: [] for k in ("pred_i", "pred_j", "conf_i", "conf_j",
-                           "mask_i", "mask_j")}
-    for b in range(0, len(edges), decode_batch):
-        sl = slice(b, b + decode_batch)
-        r1, r2 = decode_pairs(model, feats, poss, ei[sl], ej[sl], th, tw,
-                              portrait)
-        for key, t in (("pred_i", r1["pts3d"]),
-                       ("pred_j", r2["pts3d_in_other_view"]),
-                       ("conf_i", r1["conf"]), ("conf_j", r2["conf"]),
-                       ("mask_i", r1["dynamic_mask"]),
-                       ("mask_j", r2["dynamic_mask"])):
-            out[key].append(t.cpu().numpy())
-    return PairPredictions(**{k: np.concatenate(v, 0)
-                              for k, v in out.items()})
+        with trace.sync("edges_to_device", 2):
+            ei = torch.as_tensor([i for i, _ in edges], device=dev)
+            ej = torch.as_tensor([j for _, j in edges], device=dev)
+        out = {k: [] for k in ("pred_i", "pred_j", "conf_i", "conf_j",
+                               "mask_i", "mask_j")}
+        for b in range(0, len(edges), decode_batch):
+            sl = slice(b, b + decode_batch)
+            r1, r2 = decode_pairs(model, feats, poss, ei[sl], ej[sl], th, tw,
+                                  portrait)
+            maps = (("pred_i", r1["pts3d"]),
+                    ("pred_j", r2["pts3d_in_other_view"]),
+                    ("conf_i", r1["conf"]), ("conf_j", r2["conf"]),
+                    ("mask_i", r1["dynamic_mask"]),
+                    ("mask_j", r2["dynamic_mask"]))
+            with trace.sync("to_host", len(maps)):
+                for key, t in maps:
+                    out[key].append(t.cpu().numpy())
+        return PairPredictions(**{k: np.concatenate(v, 0)
+                                  for k, v in out.items()})
 
 
 def find_opt_scaling(gt_pts1, gt_pts2, pr_pts1, pr_pts2=None,

@@ -10,8 +10,9 @@ train_test_psnr.py:109-149. ``train_chunk`` and ``test_pose_chunk``, one
 ``lax.scan`` each in the JAX package, are plain loops here.
 
 The parameters and the optimiser state are updated in place; the step
-returns the same ``TrainState``. Named ``das3r::`` ranges mark the stages
-for ``torch.profiler`` (the render's own ranges are in ``rasterize``).
+returns the same ``TrainState``. Named ``das3r::`` spans
+(``utils/trace.py``) mark the step and its stages for ``torch.profiler``
+(the render's own are in ``models/render`` and ``rasterize``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from das3r_tpu_torch.models import densify as densify_mod
 from das3r_tpu_torch.models import render as render_mod
@@ -30,6 +30,7 @@ from das3r_tpu_torch.train import loss as loss_mod
 from das3r_tpu_torch.train import optim
 from das3r_tpu_torch.train.config import OptimizationConfig
 from das3r_tpu_torch.utils import image as image_utils
+from das3r_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -115,45 +116,45 @@ def train_step(
     (``add_densification_stats``); otherwise meta is returned as it is.
     """
     step = state.step + 1
-    params, poses = state.params, state.poses
-    dev = params.xyz.device
-    offset = (torch.zeros_like(params.xyz[:, :2]).requires_grad_(True)
-              if track_stats else None)
-    _require_grad(params, poses)
-    out = render_mod.render(params, meta, settings, poses.pose(uid), bg,
-                            fovx, fovy, mode="train", mean2d_offset=offset,
-                            device=dev)
-    with record_function("das3r::loss"):
-        ph = loss_mod.photometric_loss(out.image, gt_image,
-                                       params.conf_static[uid],
-                                       cfg.lambda_dssim)
-    with record_function("das3r::backward"):
+    with trace.span("das3r::train_step", step=step, uid=uid):
+        params, poses = state.params, state.poses
+        dev = params.xyz.device
+        offset = (torch.zeros_like(params.xyz[:, :2]).requires_grad_(True)
+                  if track_stats else None)
+        _require_grad(params, poses)
+        out = render_mod.render(params, meta, settings, poses.pose(uid), bg,
+                                fovx, fovy, mode="train", mean2d_offset=offset,
+                                device=dev)
+        with trace.span("das3r::loss"):
+            ph = loss_mod.photometric_loss(out.image, gt_image,
+                                           params.conf_static[uid],
+                                           cfg.lambda_dssim)
         (g_params, g_poses), g_extra = _grads(
             ph.loss, (params, poses), [offset] if track_stats else [])
 
-    new_meta = meta
-    if track_stats:
-        g_offset = g_extra[0]
-        if g_offset is None:
-            g_offset = torch.zeros_like(offset)
-        new_meta = densify_mod.add_densification_stats(meta, g_offset,
-                                                       out.radii)
-    with record_function("das3r::adam"):
-        optim.adam_step(params, g_params, state.opt,
-                        optim.gaussian_lrs(step, cfg, spatial_lr_scale))
-        gate = (ph.psnr_frame.detach() > cfg.psnr_threshold if optim_pose
-                else torch.zeros((), dtype=torch.bool, device=dev))
-        optim.adam_step(poses, g_poses, state.opt_cam,
-                        optim.camera_lrs(step, cfg), gate=gate)
-    state.step = step
-    aux = out.aux
-    metrics = StepMetrics(
-        loss=ph.loss.detach(), psnr=ph.psnr_frame.detach(),
-        cam_stepped=gate, radii_nonzero=torch.sum(out.radii > 0),
-        entry_overflow=aux.entry_overflow, tile_overflow=aux.tile_overflow,
-        dup_overflow=aux.dup_overflow, heavy_overflow=aux.heavy_overflow,
-        heavy_rows=aux.heavy_rows)
-    return state, new_meta, metrics
+        new_meta = meta
+        if track_stats:
+            g_offset = g_extra[0]
+            if g_offset is None:
+                g_offset = torch.zeros_like(offset)
+            new_meta = densify_mod.add_densification_stats(meta, g_offset,
+                                                           out.radii)
+        with trace.span("das3r::adam"):
+            optim.adam_step(params, g_params, state.opt,
+                            optim.gaussian_lrs(step, cfg, spatial_lr_scale))
+            gate = (ph.psnr_frame.detach() > cfg.psnr_threshold if optim_pose
+                    else torch.zeros((), dtype=torch.bool, device=dev))
+            optim.adam_step(poses, g_poses, state.opt_cam,
+                            optim.camera_lrs(step, cfg), gate=gate)
+        state.step = step
+        aux = out.aux
+        metrics = StepMetrics(
+            loss=ph.loss.detach(), psnr=ph.psnr_frame.detach(),
+            cam_stepped=gate, radii_nonzero=torch.sum(out.radii > 0),
+            entry_overflow=aux.entry_overflow, tile_overflow=aux.tile_overflow,
+            dup_overflow=aux.dup_overflow, heavy_overflow=aux.heavy_overflow,
+            heavy_rows=aux.heavy_rows)
+        return state, new_meta, metrics
 
 
 def _stack_metrics(ms: list[StepMetrics]) -> StepMetrics:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from das3r_tpu_torch.utils import trace
+
 _EPS = 1e-12
 
 
@@ -94,8 +96,10 @@ def pose_to_w2c(pose: torch.Tensor) -> torch.Tensor:
     differentiable w.r.t. the pose tensor."""
     q, t = pose[..., :4], pose[..., 4:7]
     top = torch.cat([quat_to_rotmat(q), t[..., :, None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose.dtype,
-                          device=pose.device).expand(*top.shape[:-2], 1, 4)
+    with trace.sync("pose_row_to_device"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose.dtype,
+                              device=pose.device)
+    bottom = bottom.expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], -2)
 
 

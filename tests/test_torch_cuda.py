@@ -14,6 +14,7 @@ import torch
 
 from das3r_tpu_torch.ops.splat import RasterSettings
 from das3r_tpu_torch.ops.splat import binning, entry_blend, window_blend
+from das3r_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 BLEND_TOL = 2e-4   # serial product vs chunked cumprod near T = 1e-4
@@ -23,6 +24,11 @@ BLEND_TOL = 2e-4   # serial product vs chunked cumprod near T = 1e-4
 GRAD_TOL = 2e-5
 GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "color": [5, 6, 7],
           "opacity": [8]}
+
+
+def launched(kernel: str) -> int:
+    """Launches of ``kernel`` so far (``launch/<kernel>``)."""
+    return trace.counters().get("launch/" + kernel, 0)
 
 
 @pytest.fixture
@@ -49,10 +55,10 @@ def test_extract_chunks_kernel_matches_plain(cuda, nbits):
     args = [torch.as_tensor(keys), torch.as_tensor(src0),
             torch.as_tensor(nlive.astype(np.int32))]
     want = binning.extract_chunks(*args, nbits, n)         # CPU: plain
-    before = binning.extract_chunks.launches
+    before = launched("extract_chunks")
     got = binning.extract_chunks(*(a.to(cuda) for a in args), nbits, n)
     torch.cuda.synchronize()
-    assert binning.extract_chunks.launches == before + 1
+    assert launched("extract_chunks") == before + 1
     assert got.dtype == torch.int32 and got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
 
@@ -105,10 +111,10 @@ def test_blend_forward_kernel_matches_plain(cuda, variant):
     plain = entry_blend.blend_forward_plain(*args, s)
     if variant == "saturate":
         assert plain.chunks_skipped > 0, "fixture no longer saturates"
-    before = entry_blend.blend_forward.launches
+    before = launched("blend_forward")
     cpre, tfinal = entry_blend.blend_forward(*(a.to(cuda) for a in args), s)
     torch.cuda.synchronize()
-    assert entry_blend.blend_forward.launches == before + 1
+    assert launched("blend_forward") == before + 1
     assert cpre.shape == plain.cpre.shape and tfinal.shape == plain.tfinal.shape
     torch.testing.assert_close(cpre.cpu(), plain.cpre, atol=BLEND_TOL, rtol=0)
     torch.testing.assert_close(tfinal.cpu(), plain.tfinal, atol=BLEND_TOL,
@@ -225,11 +231,11 @@ def test_blend_backward_kernel_matches_plain(cuda, variant):
         *args, s, fwd.tfinal, fwd.tin, g_cpre, g_tfinal).g_table
     dev = [a.to(cuda) for a in args]
     _, tfinal, n_last = entry_blend.blend_forward(*dev, s, for_backward=True)
-    before = entry_blend.blend_backward.launches
+    before = launched("blend_backward")
     got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
                                      g_cpre.to(cuda), g_tfinal.to(cuda))
     torch.cuda.synchronize()
-    assert entry_blend.blend_backward.launches == before + 1
+    assert launched("blend_backward") == before + 1
     assert got.shape == want.shape and got.device.type == "cuda"
     got = got.cpu()
     assert torch.isfinite(got).all() and (got[-1] == 0).all()  # sentinel
@@ -405,14 +411,14 @@ def test_blend_forward_range_from_zero_is_the_whole_launch(cuda, variant):
 def test_blend_backward_autograd_launches_both_kernels(cuda):
     s, args = blend_case("sparse")
     table = args[0].to(cuda).requires_grad_(True)
-    f0 = entry_blend.blend_forward.launches
-    b0 = entry_blend.blend_backward.launches
+    f0 = launched("blend_forward")
+    b0 = launched("blend_backward")
     cpre, tfinal = entry_blend.blend_entry_stream(
         table, *(a.to(cuda) for a in args[1:]), s)
     (cpre.sum() + tfinal.sum()).backward()
     torch.cuda.synchronize()
-    assert entry_blend.blend_forward.launches == f0 + 1
-    assert entry_blend.blend_backward.launches == b0 + 1
+    assert launched("blend_forward") == f0 + 1
+    assert launched("blend_backward") == b0 + 1
     assert torch.isfinite(table.grad).all() and table.grad.abs().sum() > 0
 
 
@@ -478,11 +484,11 @@ def test_extract_windows_kernel_matches_plain(cuda, nbits, k_cap):
     start = bounds[:-1].clone()
     start[:2] = torch.tensor([keys.numel() - 5, 0])
     want = binning.extract_windows(keys, start, k_cap, nbits, n)  # plain
-    before = binning.extract_windows.launches
+    before = launched("extract_windows")
     got = binning.extract_windows(keys.to(cuda), start.to(cuda), k_cap,
                                   nbits, n)
     torch.cuda.synchronize()
-    assert binning.extract_windows.launches == before + 1
+    assert launched("extract_windows") == before + 1
     assert got.dtype == torch.int32 and got.shape == (n_tiles, k_cap)
     assert torch.equal(got.cpu(), want)
 
@@ -538,10 +544,10 @@ def test_window_forward_kernel_matches_plain(cuda, k_width, mode):
     version's are; an empty tile gives bg, tfinal 1 and an all-zero tin."""
     s, args = window_case(k_width, mode)
     want = window_blend.window_forward_plain(*args, s)
-    before = window_blend.window_forward.launches
+    before = launched("window_blend_forward")
     got = window_blend.window_forward(*(a.to(cuda) for a in args), s)
     torch.cuda.synchronize()
-    assert window_blend.window_forward.launches == before + 1
+    assert launched("window_blend_forward") == before + 1
     for g, w, name in zip(got, want, ("colors", "tfinal", "tin")):
         assert g.shape == w.shape, name
         torch.testing.assert_close(g.cpu(), w, atol=BLEND_TOL, rtol=0,
@@ -579,10 +585,10 @@ def test_window_backward_kernel_matches_plain(cuda, k_width, mode):
     s, bargs = window_backward_inputs(k_width, mode)
     args = bargs[:4]
     want = window_blend.window_backward_plain(*bargs, s)
-    before = window_blend.window_backward.launches
+    before = launched("window_blend_backward")
     got = window_blend.window_backward(*(a.to(cuda) for a in bargs), s)
     torch.cuda.synchronize()
-    assert window_blend.window_backward.launches == before + 1
+    assert launched("window_blend_backward") == before + 1
     got = got.cpu()
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got[0] == 0).all()                       # the empty tile
@@ -706,14 +712,14 @@ def test_window_blend_autograd_launches_both_kernels(cuda):
     s, args = window_case(256, "sparse")
     attrs = args[0].to(cuda).requires_grad_(True)
     bg = args[3].to(cuda).requires_grad_(True)
-    f0 = window_blend.window_forward.launches
-    b0 = window_blend.window_backward.launches
+    f0 = launched("window_blend_forward")
+    b0 = launched("window_blend_backward")
     colors = window_blend.blend_tiles_window(
         attrs, args[1].to(cuda), args[2].to(cuda), bg, s)
     colors.sum().backward()
     torch.cuda.synchronize()
-    assert window_blend.window_forward.launches == f0 + 1
-    assert window_blend.window_backward.launches == b0 + 1
+    assert launched("window_blend_forward") == f0 + 1
+    assert launched("window_blend_backward") == b0 + 1
     assert torch.isfinite(attrs.grad).all() and attrs.grad.abs().sum() > 0
     _, tfinal, _ = window_blend.window_forward_plain(*args, s)
     torch.testing.assert_close(bg.grad.cpu(), tfinal.sum().expand(3),
@@ -816,14 +822,14 @@ def test_split_stream_equals_full_width_stream(cuda):
     ks = binning._sorted_key_stream(prep, ample)
     assert torch.equal(ks.sorted_packed, full_keys)
     assert int(ks.heavy_overflow) == 0
-    before = binning.extract_chunks.launches
+    before = launched("extract_chunks")
     es, es_full = (binning.bin_entry_stream(prep, st) for st in (ample, s))
-    assert binning.extract_chunks.launches == before + 2
+    assert launched("extract_chunks") == before + 2
     for f in ("rank", "chunk_tile", "count", "astart", "order"):
         assert torch.equal(getattr(es, f), getattr(es_full, f)), f
-    before = binning.extract_windows.launches
+    before = launched("extract_windows")
     tb, tb_full = (binning.bin_gaussians(prep, st) for st in (ample, s))
-    assert binning.extract_windows.launches == before + 2
+    assert launched("extract_windows") == before + 2
     for f in ("rank", "delta", "count", "full_count"):
         assert torch.equal(getattr(tb, f), getattr(tb_full, f)), f
 
@@ -852,12 +858,12 @@ def test_viewer_panel_matches_plain_render(cuda):
                             device=dev)
         orbit = scene.default_orbit()
         orbit.orbit(300.0, 80.0)
-        before = (binning.extract_chunks.launches, eb.blend_forward.launches)
+        before = (launched("extract_chunks"), launched("blend_forward"))
         images[str(dev)] = {m: scene.render_image(orbit, m).cpu()
                             for m in ("rgb", "confidence", "no_soft")}
-        launched = (binning.extract_chunks.launches - before[0],
-                    eb.blend_forward.launches - before[1])
-        assert launched == ((0, 0) if dev == "cpu" else (3, 3))
+        counts = (launched("extract_chunks") - before[0],
+                  launched("blend_forward") - before[1])
+        assert counts == ((0, 0) if dev == "cpu" else (3, 3))
     for m, want in images["cpu"].items():
         got = images[str(torch.device(cuda))][m]
         assert float(want.abs().max()) > 0, m
@@ -964,13 +970,11 @@ def test_bf16_blend_forward_kernel_matches_plain(cuda, variant):
     plain = entry_blend.blend_forward_plain(
         entry_blend.decode_bf16_table(t16), *args[1:], s)
     dev = [t16.to(cuda)] + [a.to(cuda) for a in args[1:]]
-    before = (entry_blend.blend_forward.launches,
-              entry_blend.blend_forward_bf16.launches)
+    before = (launched("blend_forward"), launched("blend_forward_bf16"))
     cpre, tfinal = entry_blend.blend_forward(*dev, s)
     cpre_n, tfinal_n, n_last = entry_blend.blend_forward(*dev, s, True)
     torch.cuda.synchronize()
-    assert (entry_blend.blend_forward.launches,
-            entry_blend.blend_forward_bf16.launches) == (
+    assert (launched("blend_forward"), launched("blend_forward_bf16")) == (
         before[0], before[1] + 2)
     for c, t in ((cpre, tfinal), (cpre_n, tfinal_n)):
         torch.testing.assert_close(c.cpu(), plain.cpre, atol=BLEND_TOL,
@@ -998,11 +1002,11 @@ def test_bf16_blend_backward_kernel_matches_plain(cuda, variant):
         dec, *args[1:], s, fwd.tfinal, fwd.tin, g_cpre, g_tfinal).g_table
     dev = [t16.to(cuda)] + [a.to(cuda) for a in args[1:]]
     _, tfinal, n_last = entry_blend.blend_forward(*dev, s, True)
-    before = entry_blend.blend_backward_bf16.launches
+    before = launched("blend_backward_bf16")
     got = entry_blend.blend_backward(*dev, s, tfinal, n_last,
                                      g_cpre.to(cuda), g_tfinal.to(cuda))
     torch.cuda.synchronize()
-    assert entry_blend.blend_backward_bf16.launches == before + 1
+    assert launched("blend_backward_bf16") == before + 1
     assert got.dtype == torch.float32 and got.shape == want.shape
     got = got.cpu()
     assert torch.isfinite(got).all() and (got[-1] == 0).all()
