@@ -27,7 +27,11 @@ failure:
    records it (``library_device_ms``: every kernel of the library call).
    Both are medians of 10 calls; ``device_ms_calls`` and
    ``device_ms_kernels`` say over how many whole calls and with how many
-   device records each (the same for ``library_device_ms``).
+   device records each (the same for ``library_device_ms``). Then the
+   duplication table's pair ``dup_count`` / ``dup_emit`` against its plain
+   version (the dense table, on the card), its keys bitwise, one line
+   each (``device_ms`` of the kernel; ``ms`` and ``plain_ms`` of the pair
+   on ``dup_count``'s).
 5. reference: a small scene rendered on the card equals the port's CPU
    render (plain versions, held against JAX and the f64 oracle by
    ``tests/test_torch_*.py``) within 2e-4, and so do the gradients of its
@@ -460,11 +464,15 @@ def device_ms(fn, kernel: str | None = None, key: str = "device_ms",
     device records of only its last few calls, and a range once held one
     record more than its launches. A call is whole when its record is
     there (``kernel``), or when its range holds the most host launches of
-    any range of ``fn`` and as many device records as launches, or one
-    fewer where more of those ranges hold one fewer (a launch that makes
-    no record in every call: the binning calls, 215 launches and 214
-    records; the range's own annotation on the device's timeline is not a
-    launch and is left out)."""
+    any range of ``fn`` and the number of device records that most of
+    those ranges hold, of the numbers within 10% (at least one) of the
+    largest (a session that lost records holds fewer). A launch through ``kernels.launch``
+    (ctypes) makes a record that the profiler links to no host operation,
+    so a call holds as many records as launches less its ctypes launches
+    (the exact window binning: 80 launches, 77 records), and its
+    ``device_ms`` leaves out those kernels' time; the range's own
+    annotation on the device's timeline is not a launch and is left
+    out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -499,7 +507,9 @@ def device_ms(fn, kernel: str | None = None, key: str = "device_ms",
                        if e.device_type == DeviceType.CPU and e.name == RANGE]
         full = max((n for n, _, _ in ranges), default=0)
         counts = collections.Counter(k for n, k, _ in ranges if n == full)
-        recs = max((full, full - 1), key=lambda k: counts[k])
+        top = max(counts, default=0)
+        recs = max((k for k in counts if k >= top - max(1, top // 10)),
+                   key=lambda k: (counts[k], k), default=0)
         times = [t for n, k, t in ranges if n == full > 0 and k == recs]
         if len(times) >= reps:
             return {key: statistics.median(times[:reps]) / 1e3,
@@ -536,7 +546,10 @@ def prefix_bytes(es, need, row_bytes):
 
 KERNELS = ("extract_chunks", "blend_forward", "blend_backward",
            "blend_forward_bf16", "blend_backward_bf16", "extract_windows",
-           "window_blend_forward", "window_blend_backward")
+           "window_blend_forward", "window_blend_backward", "dup_count",
+           "dup_emit")
+# every binning but the quantized-depth windows' builds its table with these
+DUP = ("dup_count", "dup_emit")
 
 
 def kernel_launches() -> dict:
@@ -844,10 +857,69 @@ def entry_kernel_parity(prep, settings, dev):
         library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
         pixel_entry_evals=evals, entries_needed=n_slots,
         max_n_last=int(n_last.max()), bytes=nbytes))
+    results += dup_kernel_parity(prep, settings, ks)
     sizes = dict(n_gaussians=n, entries=live, stream_slots=es.rank.numel(),
                  max_tile_entries=int(es.count.max()),
                  entry_overflow=int(es.entry_overflow))
     return results, sizes
+
+
+def dup_kernel_parity(prep, settings, ks):
+    """``dup_count`` and ``dup_emit`` against their plain version (the
+    dense duplication table, run on the card) on one view's ``prep``: the
+    keys bitwise (in order on the full-width table, as a set on the split
+    table, whose plain version emits two tables) and ``heavy_overflow``;
+    timed, with each kernel's bound. Two rows: ``ms`` (the wrapper, its
+    scan and its read of the total included) and ``plain_ms`` on the
+    first."""
+    import torch
+    from das3r_tpu_torch.ops.splat import binning
+
+    n = prep.depth.shape[0]
+    split = binning.uses_split_table(settings)
+
+    def kernel():
+        return binning.dup_keys(prep, ks.order, ks.nbits, settings)
+
+    def plain():
+        return binning.dup_keys_plain(prep, ks.order, ks.nbits, settings)
+    (keys, heavy, total), counts = run_counted(kernel)
+    want, want_heavy = plain()
+    torch.cuda.synchronize()
+    if counts["dup_count"] != 1 or counts["dup_emit"] != 1:
+        raise AssertionError(f"dup_keys launched {counts}")
+    same = (torch.equal(torch.sort(keys).values, torch.sort(want).values)
+            if split else torch.equal(keys, want))
+    if not (same and int(total) == want.numel()
+            and int(heavy) == int(want_heavy)):
+        raise AssertionError(f"dup_keys: {keys.numel()} keys against the "
+                             f"plain version's {want.numel()}, heavy "
+                             f"overflow {int(heavy)} against "
+                             f"{int(want_heavy)}, equal: {same}")
+    if (settings.max_total_entries is None
+            and not torch.equal(torch.sort(keys).values, ks.sorted_packed)):
+        raise AssertionError("dup_keys disagrees with the sorted stream")
+    # per row: the index, rect_min, rect_max, ntt, binnable, mean2d,
+    # conic, q_cap (and h_pos); count writes 4 B, emit reads the count and
+    # the scan and writes 8 B a key
+    row = 8 + 8 + 8 + 4 + 1 + 8 + 12 + 4 + (8 if split else 0)
+    count_bytes = n * (row + 4)
+    emit_bytes = n * (row + 4 + 8) + keys.numel() * 8
+    common = dict(source="das3r_tpu_torch/csrc/dup_keys.cu",
+                  replaces="none: das3r_tpu/ops/splat/binning.py:"
+                           "_sorted_key_stream's jnp table (XLA-fused)",
+                  route="cuda", max_abs_err=0.0, library_ms=None,
+                  library_device_ms=None, rows=n, keys=keys.numel(),
+                  split_table=split)
+    c_ms, c_by = bound(count_bytes)
+    e_ms, e_by = bound(emit_bytes)
+    return [
+        dict(name="dup_count", ms=time_ms(kernel),
+             **device_ms(kernel, "dup_count_kernel"),
+             plain_ms=time_ms(plain), **device_ms(plain, key="plain_device_ms"),
+             bound_ms=c_ms, bound_by=c_by, bytes=count_bytes, **common),
+        dict(name="dup_emit", **device_ms(kernel, "dup_emit_kernel"),
+             bound_ms=e_ms, bound_by=e_by, bytes=emit_bytes, **common)]
 
 
 def summary(results):
@@ -1160,7 +1232,7 @@ def phase_train(data, settings, dev, phase: str = "train"):
     if not losses[TRAIN_STEPS - 2] < losses[0]:
         raise AssertionError(f"frame 0's loss did not fall: {losses}")
     # the entry-stream kernels once per step, the window path's never
-    entry = ("extract_chunks",) + (
+    entry = ("extract_chunks",) + DUP + (
         ("blend_forward_bf16", "blend_backward_bf16") if settings.table_bf16
         else ("blend_forward", "blend_backward"))
     for name, count in launches.items():
@@ -2140,14 +2212,14 @@ def phase_sharded(bundle, k_probe: int, dev):
         for mesh in ("tile_2", "gauss_2"):
             launches.update(r[mesh]["launches"])
         win_launches.update(r["tile_2_window"]["launches"])
-    for name in ("extract_chunks", "blend_forward", "blend_backward"):
+    for name in ("extract_chunks", "blend_forward", "blend_backward") + DUP:
         if launches[name] != 4 * SHARDED_STEPS:
             raise AssertionError(f"the sharded steps launched {name} "
                                  f"{launches[name]} times")
     for name, count in win_launches.items():
         want = 2 * SHARDED_STEPS if name in (
             "extract_windows", "window_blend_forward",
-            "window_blend_backward") else 0
+            "window_blend_backward") + DUP else 0
         if count != want:
             raise AssertionError(f"the window path's sharded steps launched "
                                  f"{name} {count} times")
@@ -2624,7 +2696,8 @@ def phase_gui(model: Path, dev):
         n_alive = int(scene.meta.alive.sum())
         if state["n_gaussians"] != n_alive:
             raise AssertionError(f"/state: {state}")
-        want = {"extract_chunks": 1, "blend_forward": 1}
+        want = {"extract_chunks": 1, "blend_forward": 1, "dup_count": 1,
+                "dup_emit": 1}
         yaws = [round(k * 2 * np.pi / 8 / 0.005, 3) for k in range(8)]
         request_ms, pngs, launches = {}, {}, collections.Counter()
         with _Timed(render_mod, "render") as renders:
@@ -2662,9 +2735,12 @@ def phase_gui(model: Path, dev):
     if thread.is_alive():
         raise AssertionError("the viewer's server thread did not stop")
 
-    # one panel per mode against the plain versions of A and B
+    # one panel per mode against the plain versions of the table, A and B
     orbit = app.orbit
     plain_chunks = binning.extract_chunks_plain
+
+    def plain_keys(*args):
+        return (*binning.dup_keys_plain(*args), None)
 
     def plain_blend(table, rank, astart, count, settings, **tile_range):
         out = entry_blend.blend_forward_plain(table, rank, astart, count,
@@ -2673,16 +2749,19 @@ def phase_gui(model: Path, dev):
 
     parity, panel_ms = {}, {}
     kernel_a, kernel_b = binning.extract_chunks, entry_blend.blend_forward
+    kernel_dup = binning.dup_keys
     for mode in ("rgb", "confidence", "no_soft"):
         img = scene.render_image(orbit, mode)
         before = kernel_launches()
         binning.extract_chunks = plain_chunks
         entry_blend.blend_forward = plain_blend
+        binning.dup_keys = plain_keys
         try:
             plain = scene.render_image(orbit, mode)
         finally:
             binning.extract_chunks = kernel_a
             entry_blend.blend_forward = kernel_b
+            binning.dup_keys = kernel_dup
         counts = launches_since(before)
         torch.cuda.synchronize()
         err = float((img - plain).abs().max())
@@ -2736,9 +2815,9 @@ def phase_trainer(bundle, k_probe: int, dev):
                              densify_until_iter=35, opacity_reset_interval=30)
     runs, launches = {}, {}
     want = {"entry_stream": ("extract_chunks", "blend_forward",
-                             "blend_backward"),
+                             "blend_backward") + DUP,
             "window": ("extract_windows", "window_blend_forward",
-                       "window_blend_backward")}
+                       "window_blend_backward") + DUP}
     for path, settings in (
             ("entry_stream", bundle.settings),
             ("window", dataclasses.replace(bundle.settings,
@@ -3181,9 +3260,10 @@ def phase_pipeline(sd, dev):
     by_stage = {"probe": dict(probe.launches),
                 "train": dict(train.launches),
                 "render": dict(render.launches)}
-    want = {"probe": ("extract_windows", "window_blend_forward"),
-            "train": ("extract_chunks", "blend_forward", "blend_backward"),
-            "render": ("extract_chunks", "blend_forward")}
+    want = {"probe": ("extract_windows", "window_blend_forward") + DUP,
+            "train": ("extract_chunks", "blend_forward", "blend_backward")
+            + DUP,
+            "render": ("extract_chunks", "blend_forward") + DUP}
     for stage, names in want.items():
         for k in names:
             if not by_stage[stage].get(k):
@@ -4016,14 +4096,16 @@ def launches_by_stage(launches: dict, probe, steps, tp_steps) -> dict:
 
 def quality_launch_gate(branch: str, by_stage: dict, steps: int,
                         tp_steps: int | None) -> None:
-    """The probe launched D and F, every training step A, B and C once,
-    every test-pose step B and C once (None: a run without test poses)."""
-    want = {"probe": {"extract_windows": None, "window_blend_forward": None},
+    """The probe launched D, F and the table's pair (``DUP``), every
+    training step A, B, C and the pair once, every test-pose step B, C and
+    the pair once (None: a run without test poses)."""
+    want = {"probe": {k: None for k in ("extract_windows",
+                                        "window_blend_forward") + DUP},
             "train": {k: steps for k in ("extract_chunks", "blend_forward",
-                                         "blend_backward")}}
+                                         "blend_backward") + DUP}}
     if tp_steps is not None:
         want["test_pose"] = {k: tp_steps for k in ("blend_forward",
-                                                   "blend_backward")}
+                                                   "blend_backward") + DUP}
     for stage, names in want.items():
         for k, n in names.items():
             got = by_stage[stage].get(k, 0)
@@ -4469,7 +4551,8 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     # serving runs the entry-stream forward kernels once per view and no
     # other kernel
-    want = {"extract_chunks": N_FRAMES, "blend_forward": N_FRAMES}
+    want = {"extract_chunks": N_FRAMES, "blend_forward": N_FRAMES,
+            "dup_count": N_FRAMES, "dup_emit": N_FRAMES}
     for kname, count in serve.items():
         if count != want.get(kname, 0):
             raise AssertionError(

@@ -19,6 +19,11 @@ Differences from the JAX package, by design:
   K + 128 sentinels itself, so a window read never leaves the array.
 * With ``max_total_entries=None`` the stream is sized from the real counts
   and drops nothing; a set cap keeps the JAX farthest-first drop policy.
+* On the card the duplication table is never built: a pair of CUDA
+  kernels (``dup_count``, ``dup_emit``) counts each depth-ranked row's
+  live cells and writes its keys at the row's offset (``dup_keys``), the
+  split table's two tables as one emission. The dense [N, D] table stays
+  as the plain version on CPU tensors (``dup_keys_plain``).
 * The chunk gather plus rank decode is one CUDA kernel
   (``extract_chunks``, replacing ``_extract_chunks_pallas``), and so is
   the window gather plus rank decode (``extract_windows``, replacing
@@ -127,18 +132,164 @@ def _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, d0: int,
         return keys[valid]
 
 
+def uses_split_table(settings: RasterSettings) -> bool:
+    """Whether the duplication table is split (``heavy_rows_cap`` set and
+    ``0 < light_dup_width < max_tiles_per_gaussian``)."""
+    s = settings
+    return (s.heavy_rows_cap is not None
+            and 0 < s.light_dup_width < s.max_tiles_per_gaussian)
+
+
+def allowed_cells(prep: Preprocessed, d_cap: int) -> torch.Tensor:
+    """[N] int32 rect cells a Gaussian may emit: its tile count capped at
+    D, 0 when it is not binnable."""
+    return torch.where(prep.binnable,
+                       torch.clamp_max(prep.n_tiles_touched, d_cap),
+                       torch.zeros_like(prep.n_tiles_touched))
+
+
+def heavy_rows(ntt: torch.Tensor, settings: RasterSettings):
+    """The split table's heavy rows, from ``ntt`` [N] (``allowed_cells`` in
+    depth order): (h_pos [N] int64, each row's position among the heavy
+    rows before it, and ``heavy_overflow``, the cells past L of the heavy
+    rows at or past ``heavy_rows_cap``)."""
+    L, h_cap = settings.light_dup_width, settings.heavy_rows_cap
+    heavy = ntt > L                                   # [N] (0 if dead)
+    h_pos = torch.cumsum(heavy, 0) - heavy.to(torch.int64)
+    heavy_overflow = torch.sum(torch.where(
+        heavy & (h_pos >= h_cap), ntt - L, torch.zeros_like(ntt))).to(
+            torch.int64)
+    return h_pos, heavy_overflow
+
+
+def row_allowance(ntt: torch.Tensor, h_pos: torch.Tensor | None,
+                  settings: RasterSettings) -> torch.Tensor:
+    """[N] cells that ``dup_count`` and ``dup_emit`` let row r emit: all of
+    ``ntt[r]``, or the first L of a heavy row at or past ``heavy_rows_cap``
+    (``h_pos`` given: the split table). Through the plain cull
+    (``_emit_keys`` with it as the count) it emits the split table's two
+    tables' keys in one buffer, row-major."""
+    if h_pos is None:
+        return ntt
+    L, h_cap = settings.light_dup_width, settings.heavy_rows_cap
+    return torch.where((ntt > L) & (h_pos >= h_cap), torch.full_like(ntt, L),
+                       ntt)
+
+
+def dup_keys_plain(prep: Preprocessed, order: torch.Tensor, nbits: int,
+                   settings: RasterSettings):
+    """Plain version of the ``dup_count`` / ``dup_emit`` pair: the dense
+    duplication table. Returns (live keys, ``heavy_overflow``).
+
+    The full-width table is [N, D], its keys depth-major. With the split
+    table (``uses_split_table``) it is split as in the JAX package: every
+    row emits its first L cells into [N, L], and the rows with more cells,
+    in depth order, take the first ``heavy_rows_cap`` rows of a [H_cap, D -
+    L] table for the rest; the keys are the first table's, then the
+    second's. A heavy row past the cap (the farthest go first) keeps its
+    first L cells; the cells it loses are ``heavy_overflow``. Without such
+    a row both tables together hold the full-width table's keys."""
+    s = settings
+    n = order.shape[0]
+    d_cap = s.max_tiles_per_gaussian
+    dev = order.device
+    width = torch.clamp_min(prep.rect_max[:, 0] - prep.rect_min[:, 0], 1)[order]
+    ntt = allowed_cells(prep, d_cap)[order]
+    rect_min = prep.rect_min[order]
+    m2d, conic, q_cap = prep.mean2d[order], prep.conic[order], prep.q_cap[order]
+    rank = torch.arange(n, dtype=torch.int64, device=dev)
+    if not uses_split_table(s):
+        return (_emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0,
+                           d_cap, nbits, s),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    L, h_cap = s.light_dup_width, s.heavy_rows_cap
+    h_pos, heavy_overflow = heavy_rows(ntt, s)
+    in_h = (ntt > L) & (h_pos < h_cap)
+    # hid[j]: the depth rank of heavy row j, n on unused rows
+    hid = torch.full((h_cap + 1,), n, dtype=torch.int64, device=dev)
+    hid.scatter_(0, torch.where(in_h, h_pos, h_cap),
+                 torch.where(in_h, rank, n))
+    hid = hid[:-1]
+    hc = torch.clamp_max(hid, n - 1)
+    live = torch.cat([
+        _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0, L,
+                   nbits, s),
+        _emit_keys(width[hc], rect_min[hc],
+                   torch.where(hid < n, ntt[hc], torch.zeros_like(hc)),
+                   m2d[hc], conic[hc], q_cap[hc], hc, L, d_cap - L,
+                   nbits, s)])
+    return live, heavy_overflow
+
+
+def dup_keys(prep: Preprocessed, order: torch.Tensor, nbits: int,
+             settings: RasterSettings):
+    """The live ``tile << nbits | depth_rank`` keys of the duplication
+    table: (keys, ``heavy_overflow``, the key count as a [] int64 on the
+    device, or None where only the host knows it).
+
+    Row r is depth rank r, Gaussian ``order[r]``. The kernels
+    (csrc/dup_keys.cu) give each row its allowance (``row_allowance``): with
+    the split table the two tables become one emission into one buffer.
+    ``dup_count`` counts each row's cells that the cull keeps; an inclusive
+    scan of the counts gives each row's end, and one read of the total
+    sizes the output; ``dup_emit`` writes each row's keys there. So the
+    keys are row-major in depth order, as the full-width table's
+    ``keys[valid]``, and the split table's are the same set as its two
+    tables'. A CPU tensor takes the plain version (``dup_keys_plain``); a
+    CUDA tensor launches the kernels.
+    """
+    if order.device.type == "cpu":
+        return (*dup_keys_plain(prep, order, nbits, settings), None)
+    s = settings
+    n = order.shape[0]
+    dev = order.device
+    d_cap = s.max_tiles_per_gaussian
+    kernels.check(order, "order", torch.int64, 1)
+    # the fields may be column views (the Gaussian-sharded render's
+    # gathered blocks): the kernels read rows of packed arrays
+    f = {}
+    for name, dtype, shape in (("rect_min", torch.int32, (n, 2)),
+                               ("rect_max", torch.int32, (n, 2)),
+                               ("n_tiles_touched", torch.int32, (n,)),
+                               ("binnable", torch.bool, (n,)),
+                               ("mean2d", torch.float32, (n, 2)),
+                               ("conic", torch.float32, (n, 3)),
+                               ("q_cap", torch.float32, (n,))):
+        f[name] = getattr(prep, name).contiguous()
+        kernels.check(f[name], name, dtype, len(shape), dev)
+        if tuple(f[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(f[name].shape)}")
+    if not 1 <= nbits <= 62 or not 0 <= n < 2**31 or not 0 < d_cap < 2**31:
+        raise ValueError(f"nbits={nbits}, n={n}, D={d_cap} out of range")
+    h_pos, heavy_overflow = None, torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+    if uses_split_table(s):
+        h_pos, heavy_overflow = heavy_rows(allowed_cells(prep, d_cap)[order],
+                                           s)
+    args = (order.data_ptr(), f["rect_min"].data_ptr(),
+            f["rect_max"].data_ptr(), f["n_tiles_touched"].data_ptr(),
+            f["binnable"].data_ptr(), f["mean2d"].data_ptr(),
+            f["conic"].data_ptr(), f["q_cap"].data_ptr(),
+            None if h_pos is None else h_pos.data_ptr(), n, d_cap,
+            s.light_dup_width, s.heavy_rows_cap or 0, s.tiles_x, s.tile,
+            int(s.tight_binning))
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    kernels.launch("dup_count", *args, counts.data_ptr())
+    incl = torch.cumsum(counts, 0)                    # int64
+    total = incl[-1] if n else torch.zeros((), dtype=torch.int64,
+                                           device=dev)
+    with trace.sync("emit_keys"):
+        keys = torch.empty(int(total), dtype=torch.int64, device=dev)
+    kernels.launch("dup_emit", *args, counts.data_ptr(), incl.data_ptr(),
+                   nbits, keys.data_ptr())
+    return keys, heavy_overflow, total
+
+
 def _sorted_key_stream(prep: Preprocessed,
                        settings: RasterSettings) -> SortedKeyStream:
-    """Duplication table -> packed self-describing keys -> one sort.
-
-    The full-width table is [N, D]. With ``heavy_rows_cap`` set and ``0 <
-    light_dup_width < D`` it is split as in the JAX package: every row
-    emits its first L cells into [N, L], and the rows with more cells, in
-    depth order, take the first ``heavy_rows_cap`` rows of a [H_cap, D - L]
-    table for the rest. A heavy row past the cap (the farthest go first)
-    keeps its first L cells; the cells it loses are ``heavy_overflow``.
-    Without such a row both tables together hold the full-width table's
-    keys."""
+    """Duplication table (``dup_keys``) -> packed self-describing keys ->
+    one sort."""
     s = settings
     n = prep.depth.shape[0]
     d_cap = s.max_tiles_per_gaussian
@@ -151,52 +302,23 @@ def _sorted_key_stream(prep: Preprocessed,
     sort_depth = torch.where(alive, prep.depth,
                              torch.full_like(prep.depth, float("inf")))
     order = torch.argsort(sort_depth, stable=True)
-
-    width = torch.clamp_min(prep.rect_max[:, 0] - prep.rect_min[:, 0], 1)[order]
-    ntt = torch.where(alive, torch.clamp_max(prep.n_tiles_touched, d_cap),
-                      torch.zeros_like(prep.n_tiles_touched))[order]
-    rect_min = prep.rect_min[order]
-    m2d, conic, q_cap = prep.mean2d[order], prep.conic[order], prep.q_cap[order]
     dup_overflow = torch.sum(prep.n_tiles_touched > d_cap)
-    rank = torch.arange(n, dtype=torch.int64, device=dev)
-    split = s.heavy_rows_cap is not None and 0 < s.light_dup_width < d_cap
-
-    heavy_overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    if split:
-        L, h_cap = s.light_dup_width, s.heavy_rows_cap
-        heavy = ntt > L                                   # [N] (0 if dead)
-        h_pos = torch.cumsum(heavy, 0) - heavy.to(torch.int64)
-        in_h = heavy & (h_pos < h_cap)
-        # hid[j]: the depth rank of heavy row j, n on unused rows
-        hid = torch.full((h_cap + 1,), n, dtype=torch.int64, device=dev)
-        hid.scatter_(0, torch.where(in_h, h_pos, h_cap),
-                     torch.where(in_h, rank, n))
-        hid = hid[:-1]
-        heavy_overflow = torch.sum(torch.where(
-            heavy & ~in_h, ntt - L, torch.zeros_like(ntt))).to(torch.int64)
-        hc = torch.clamp_max(hid, n - 1)
-        live = torch.cat([
-            _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0, L,
-                       nbits, s),
-            _emit_keys(width[hc], rect_min[hc],
-                       torch.where(hid < n, ntt[hc], torch.zeros_like(hc)),
-                       m2d[hc], conic[hc], q_cap[hc], hc, L, d_cap - L,
-                       nbits, s)])
-    else:
-        live = _emit_keys(width, rect_min, ntt, m2d, conic, q_cap, rank, 0,
-                          d_cap, nbits, s)
+    live, heavy_overflow, n_live = dup_keys(prep, order, nbits, s)
 
     entry_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     if s.max_total_entries is not None:
-        with trace.sync("entry_cap_to_device"):
-            over = torch.tensor(live.numel() - s.max_total_entries,
-                                device=dev)
+        if n_live is None:
+            with trace.sync("entry_cap_to_device"):
+                over = torch.tensor(live.numel() - s.max_total_entries,
+                                    device=dev)
+        else:
+            over = n_live - s.max_total_entries
         entry_overflow = torch.clamp_min(over, 0)
         # the JAX compaction buffer of the full-width table: the farthest
         # Gaussians' entries beyond the cap are dropped (its keys are in
         # depth-major order; the split table's are not, and JAX's split
         # branch drops nothing either)
-        if not split and n * d_cap > s.full_sort_below:
+        if not uses_split_table(s) and n * d_cap > s.full_sort_below:
             live = live[: s.max_total_entries]
     return SortedKeyStream(sorted_packed=torch.sort(live).values, order=order,
                            nbits=nbits, dup_overflow=dup_overflow,

@@ -15,7 +15,7 @@ stream, launches on that stream without synchronising, and returns
 launch under ``launch/<name>`` (``utils/trace.counters()``). A kernel is
 named by its launch function; a source may define more than one
 (``VARIANTS``: the bf16-table forms of B and C live in the sources of their
-f32 forms).
+f32 forms, and ``dup_count`` and ``dup_emit`` in ``dup_keys.cu``).
 """
 from __future__ import annotations
 
@@ -61,12 +61,21 @@ SIGNATURES = {
     # tile0, tiles_x, alpha_clip, alpha_floor, eps, g_attrs_out, stream
     "window_blend_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _F, _F, _F, _P, _P),
+    # order, rect_min, rect_max, ntt, binnable, mean2d, conic, q_cap, h_pos
+    # (may be NULL), n, d_cap, light, heavy_cap, tiles_x, tile, tight,
+    # counts_out, stream
+    "dup_count": (_P,) * 9 + (_I,) * 7 + (_P, _P),
+    # dup_count's arguments up to tight, then counts, incl, nbits,
+    # keys_out, stream
+    "dup_emit": (_P,) * 9 + (_I,) * 7 + (_P, _P, _I, _P, _P),
 }
-# launch functions defined in another kernel's source: name -> source
+# launch functions defined in another source: name -> source
 VARIANTS = {"blend_forward_bf16": "blend_forward",
-            "blend_backward_bf16": "blend_backward"}
+            "blend_backward_bf16": "blend_backward",
+            "dup_count": "dup_keys", "dup_emit": "dup_keys"}
 # the bf16 forms take the f32 forms' arguments (the table is [M, 11] bf16)
-SIGNATURES.update({k: SIGNATURES[v] for k, v in VARIANTS.items()})
+SIGNATURES.update({k + "_bf16": SIGNATURES[k]
+                   for k in ("blend_forward", "blend_backward")})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # each kernel's ``<name>_launch``, resolved and typed once

@@ -841,6 +841,139 @@ def test_split_stream_equals_full_width_stream(cuda):
     assert ks.sorted_packed.numel() < full_keys.numel()
 
 
+def edge_prep(cuda, seed=5):
+    """Preprocess outputs, made by hand, of Gaussians centred on tile edges
+    (x and y at 16k + {-0.5, 0, 0.25, 15, 15.5}) and on and past the image
+    edges, with radii of 1-48 px, a few non-positive conic diagonals (the
+    cull's ``A_safe`` / ``C_safe``) and depths on a 0.1 grid (ties):
+    (settings, Preprocessed on the card)."""
+    from das3r_tpu_torch.ops.splat.preprocess import Preprocessed
+    s = RasterSettings(image_height=72, image_width=88, sh_degree=0,
+                       max_tiles_per_gaussian=32)
+    rng = np.random.default_rng(seed)
+    n = 4000
+
+    def edges(size, tiles):
+        grid = (16 * np.arange(tiles + 1)[:, None]
+                + np.array([-0.5, 0.0, 0.25, 15.0, 15.5])).ravel()
+        return np.concatenate([grid, [-4.0, -0.5, size - 0.5, size,
+                                      size + 4.0]])
+    mx = rng.choice(edges(s.image_width, s.tiles_x), n)
+    my = rng.choice(edges(s.image_height, s.tiles_y), n)
+    sx, sy = rng.uniform(0.3, 16, (2, n))
+    rho = rng.uniform(-0.9, 0.9, n)
+    cxx, cyy, cxy = sx * sx + 0.3, sy * sy + 0.3, rho * sx * sy
+    det = cxx * cyy - cxy * cxy
+    conic = np.stack([cyy / det, -cxy / det, cxx / det], -1)
+    conic[:40, 0] = rng.choice([0.0, -0.01], 40)
+    conic[40:80, 2] = rng.choice([0.0, -0.01], 40)
+    mid = 0.5 * (cxx + cyy)
+    radius = np.ceil(3 * np.sqrt(mid + np.sqrt(np.maximum(
+        mid * mid - det, 0.1))))
+    tiles = np.array([s.tiles_x, s.tiles_y])
+    m2d = np.stack([mx, my], -1).astype(np.float32)
+    rect_min = np.clip(np.floor((m2d - radius[:, None]) / s.tile), 0, tiles)
+    rect_max = np.clip((m2d + radius[:, None] + s.tile - 1) // s.tile, 0,
+                       tiles)
+    span = np.maximum(rect_max - rect_min, 0)
+    ntt = span[:, 0] * span[:, 1]
+    op = rng.uniform(0.002, 1.0, n)
+    q_cap = 2 * np.log(np.maximum(op / s.alpha_floor, 1e-12))
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x).astype(dtype), device=cuda)
+    f32, i32 = np.float32, np.int32
+    prep = Preprocessed(
+        mean2d=t(m2d, f32), depth=t(np.round(rng.uniform(1, 9, n), 1), f32),
+        conic=t(conic, f32), color=t(rng.uniform(0, 1, (n, 3)), f32),
+        opacity=t(op, f32), radius=t(radius, i32), rect_min=t(rect_min, i32),
+        rect_max=t(rect_max, i32), n_tiles_touched=t(ntt, i32),
+        binnable=t((ntt > 0) & (op >= s.alpha_floor), bool),
+        q_cap=t(q_cap, f32))
+    return s, prep
+
+
+def binning_case(case, cuda):
+    """(settings, Preprocessed on the card) of a ``DUP_CASES`` case."""
+    import dataclasses
+    if case == "edges":
+        return edge_prep(cuda)
+    s, prep, heavy = card_prep(cuda)
+    if case == "orbit":            # the serving form: D = 32, no split
+        s = dataclasses.replace(s, max_tiles_per_gaussian=32)
+    elif case == "train":          # heavy rows past the cap, an entry cap
+        s = dataclasses.replace(
+            s, heavy_rows_cap=max(128, (heavy // 3) // 128 * 128),
+            max_total_entries=12_000)
+    elif case == "truncated":      # JAX's compaction to the cap
+        s = dataclasses.replace(s, max_total_entries=12_000,
+                                full_sort_below=0)
+    elif case == "loose":
+        s = dataclasses.replace(s, tight_binning=False)
+    elif case == "d128":
+        s = dataclasses.replace(s, max_tiles_per_gaussian=128)
+    elif case == "culled":
+        prep = prep._replace(binnable=torch.zeros_like(prep.binnable))
+    elif case == "strided":        # column views, as the sharded gather's
+        prep = prep._replace(**{
+            k: torch.stack([v, v], 1)[:, 0] for k, v in prep._asdict().items()
+            if k != "depth"})
+        assert not prep.rect_min.is_contiguous()
+    return s, prep
+
+
+DUP_CASES = ["orbit", "train", "truncated", "loose", "d128", "edges",
+             "culled", "strided"]
+
+
+@pytest.mark.parametrize("case", DUP_CASES)
+def test_dup_kernels_bin_bitwise_the_plain_table(cuda, case):
+    """``_sorted_key_stream`` and ``bin_entry_stream`` on the card, whose
+    table is the ``dup_count`` / ``dup_emit`` pair (one launch each per
+    binning), equal the plain dense table's on the CPU on the same inputs:
+    the sorted keys, ``order``, every overflow count and every
+    ``EntryStream`` field."""
+    from das3r_tpu_torch.ops.splat.preprocess import Preprocessed
+    s, prep = binning_case(case, cuda)
+    cpu = Preprocessed(*(x.cpu() for x in prep))
+    pair = ("dup_count", "dup_emit")
+    want = binning._sorted_key_stream(cpu, s)
+    before = [launched(k) for k in pair]
+    got = binning._sorted_key_stream(prep, s)
+    torch.cuda.synchronize()
+    assert [launched(k) for k in pair] == [b + 1 for b in before]
+    assert got.nbits == want.nbits
+    for f in ("sorted_packed", "order", "dup_overflow", "entry_overflow",
+              "heavy_overflow"):
+        assert getattr(got, f).device.type == "cuda", f
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    es_want = binning.bin_entry_stream(cpu, s)
+    es = binning.bin_entry_stream(prep, s)
+    torch.cuda.synchronize()
+    assert [launched(k) for k in pair] == [b + 2 for b in before]
+    for f in binning.EntryStream._fields:
+        assert torch.equal(getattr(es, f).cpu(), getattr(es_want, f)), f
+    live = want.sorted_packed.numel()
+    if case == "train":
+        assert int(want.heavy_overflow) > 0 and int(want.entry_overflow) > 0
+    if case == "truncated":
+        assert live == s.max_total_entries and int(want.entry_overflow) > 0
+    assert (live == 0) == (case == "culled")
+
+
+def test_dup_keys_raise_on_bad_cuda_input(cuda):
+    s, prep = binning_case("orbit", cuda)
+    order = torch.argsort(prep.depth)
+    for field, bad, match in (
+            ("mean2d", prep.mean2d.double(), "float32"),
+            ("conic", prep.conic[:, :2], r"must be \(6000, 3\)"),
+            ("binnable", prep.binnable.int(), "bool"),
+            ("q_cap", prep.q_cap.cpu(), "must be on"),
+            ("rect_min", prep.rect_min[:-1], r"must be \(6000, 2\)")):
+        with pytest.raises(ValueError, match=match):
+            binning.dup_keys(prep._replace(**{field: bad}), order, 13, s)
+
+
 def test_viewer_panel_matches_plain_render(cuda):
     """A viewer panel on the card (kernels A and B, once each) against the
     same panel on the CPU (their plain versions), float image within 2e-4."""

@@ -121,6 +121,41 @@ def test_entry_stream_matches_jax_split(tight, cap):
 
 
 @pytest.mark.parametrize("cap", ["ample", "starved"])
+@pytest.mark.parametrize("tight", [True, False])
+def test_one_buffer_allowance_emits_the_split_tables_keys(tight, cap):
+    """The rule the ``dup_count`` / ``dup_emit`` kernels are given: each
+    depth-ranked row emits ``row_allowance`` cells (the split table's L /
+    heavy-cap rule as one count per row) into one buffer. Through the plain
+    cull it emits exactly the key set of the two-table plain path, with its
+    ``heavy_overflow``, row-major in depth order; with an ample cap, the
+    full-width table's keys in their order."""
+    js, ts, jprep, tprep, heavy = prep_pair(tight)
+    _, ts1 = with_cap(js, ts, caps(heavy)[cap])
+    ks = tbin._sorted_key_stream(tprep, ts1)          # the two tables
+    d_cap = ts1.max_tiles_per_gaussian
+    o = ks.order
+    ntt = tbin.allowed_cells(tprep, d_cap)[o]
+    h_pos, heavy_overflow = tbin.heavy_rows(ntt, ts1)
+    allow = tbin.row_allowance(ntt, h_pos, ts1)
+    width = torch.clamp_min(tprep.rect_max[:, 0] - tprep.rect_min[:, 0], 1)
+    keys = tbin._emit_keys(width[o], tprep.rect_min[o], allow,
+                           tprep.mean2d[o], tprep.conic[o], tprep.q_cap[o],
+                           torch.arange(N), 0, d_cap, ks.nbits, ts1)
+    assert torch.equal(torch.sort(keys).values, ks.sorted_packed)
+    assert int(heavy_overflow) == int(ks.heavy_overflow)
+    rank = keys & ((1 << ks.nbits) - 1)
+    assert bool((rank[1:] >= rank[:-1]).all())
+    cut = int((allow < ntt).sum())
+    if cap == "ample":
+        assert cut == 0 and int(heavy_overflow) == 0
+        full, _ = tbin.dup_keys_plain(tprep, o, ks.nbits, ts)
+        assert torch.equal(keys, full)
+    else:
+        assert cut > 0 and int(heavy_overflow) > 0
+    assert tbin.row_allowance(ntt, None, ts1) is ntt
+
+
+@pytest.mark.parametrize("cap", ["ample", "starved"])
 def test_window_bins_match_jax_split(cap):
     js, ts, jprep, tprep, heavy = prep_pair(True)
     js1, ts1 = with_cap(js, ts, caps(heavy)[cap], max_total_entries=None)

@@ -35,6 +35,13 @@ VIEW_SYNCS = {"sync/identity_quat_to_device": 1,
               "sync/stream_total": 1}
 PAIRS_SYNCS = {"sync/frames_to_device": 1, "sync/edges_to_device": 2,
                "sync/to_host": 6}
+# On the card the dup_count / dup_emit pair emits the split table's keys
+# into one buffer behind one wait, and the entry cap is applied to the
+# key count on the device.
+CARD_TRAIN_SYNCS = {**{k: v for k, v in TRAIN_SYNCS.items()
+                       if k != "sync/entry_cap_to_device"},
+                    "sync/emit_keys": 1}
+CARD_VIEW_SYNCS = dict(VIEW_SYNCS)
 
 
 def test_spans_nest_with_parent_root_and_attrs():
@@ -327,9 +334,11 @@ def test_every_wait_of_a_step_a_view_and_a_decode_batch_is_counted(cuda):
     torch.cuda.synchronize()
     with trace.session() as rec:
         _, where = waits(lambda: step(1))
-    assert rec.counts("sync/") == TRAIN_SYNCS, where
-    assert len(where) == sum(TRAIN_SYNCS.values()), where
-    assert rec.counts("launch/") == {"launch/extract_chunks": 1,
+    assert rec.counts("sync/") == CARD_TRAIN_SYNCS, where
+    assert len(where) == sum(CARD_TRAIN_SYNCS.values()), where
+    assert rec.counts("launch/") == {"launch/dup_count": 1,
+                                     "launch/dup_emit": 1,
+                                     "launch/extract_chunks": 1,
                                      "launch/blend_forward": 1,
                                      "launch/blend_backward": 1}
 
@@ -348,9 +357,12 @@ def test_every_wait_of_a_step_a_view_and_a_decode_batch_is_counted(cuda):
     torch.cuda.synchronize()
     with trace.session() as rec:
         _, where = waits(view)
-    assert rec.counts("sync/") == {**VIEW_SYNCS, "sync/image_to_host": 1}
-    assert len(where) == sum(VIEW_SYNCS.values()) + 1, where
-    assert rec.counts("launch/") == {"launch/extract_chunks": 1,
+    assert rec.counts("sync/") == {**CARD_VIEW_SYNCS,
+                                   "sync/image_to_host": 1}
+    assert len(where) == sum(CARD_VIEW_SYNCS.values()) + 1, where
+    assert rec.counts("launch/") == {"launch/dup_count": 1,
+                                     "launch/dup_emit": 1,
+                                     "launch/extract_chunks": 1,
                                      "launch/blend_forward": 1}
 
     model = AsymmetricCroCo3D(TINY)
