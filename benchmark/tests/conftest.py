@@ -33,7 +33,11 @@ def _edit(path: Path, **changes) -> None:
 
 @pytest.fixture
 def tiny_bench(tmp_path) -> Path:
-    b = tmp_path / "bench"
+    return tiny_copy(tmp_path / "bench")
+
+
+def tiny_copy(b: Path) -> Path:
+    """The benchmark's data files and drivers under ``b``, cut to size."""
     for sub in ("configs", "traffic", "limits", "drivers", "metrics"):
         shutil.copytree(BENCH / sub, b / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
@@ -44,6 +48,8 @@ def tiny_bench(tmp_path) -> Path:
           check_views=2, warmup_views=1)
     _edit(b / "traffic" / "video_pairs.json", clip_frames=4, check_pairs=3,
           decode_batch=3, encode_batch=2, clips_in_pool=2)
+    _edit(b / "traffic" / "finetune_dp4.json", ranks=2, pairs_per_rank=2,
+          pool_pairs=8)
     return b
 
 

@@ -39,7 +39,10 @@ def test_spec_has_the_contract_shape(spec):
         assert len(c["why"]) <= 200 and "\n" not in c["why"]
     for w in spec["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # four-card cells: at most a quarter of the cells, rounded down, or one
+    assert sum(w["chips"] == 4 for w in spec["workloads"]) <= max(
+        1, len(cells) // 4)
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     assert e2e["setup_s"]["bound"] == 0.25
     for m in spec["end_to_end"]:
